@@ -1,4 +1,4 @@
-# motion-estimated-video-trimmer-tpu — deployment image for TPU VM hosts.
+# motion-estimated-video-trimmer — deployment image for NVIDIA GPU hosts.
 #
 # FFmpeg 8.0 is built from source (same major as the reference image,
 # reference Dockerfile:46-65): distro FFmpeg 5.x exports motion-vector
@@ -9,12 +9,12 @@
 # parity scenario gate on io.native.hevc_mv_export_capable(), so running
 # the suite inside this image exercises the HEVC MV path end to end.
 #
-#   docker build -t mvtrim-tpu .
-#   docker run --privileged --net=host \
+#   docker build -t mvtrim .
+#   docker run --gpus 1 \
 #     -v /data/input:/input:ro -v /data/output:/output \
-#     --env-file config/motion_trim.env mvtrim-tpu /input /output
+#     --env-file config/motion_trim.env mvtrim /input /output
 #
-# (--privileged/--net=host are the usual TPU-VM device-access requirements.)
+# (--gpus needs the NVIDIA container toolkit on the host.)
 
 FROM python:3.12-slim-bookworm AS build
 
@@ -58,9 +58,9 @@ COPY --from=build /usr/local/lib/libav*.so* /usr/local/lib/
 COPY --from=build /usr/local/lib/libsw*.so* /usr/local/lib/
 RUN ldconfig
 
-# TPU-enabled JAX (pulls libtpu); pin to the tested minor.
-RUN pip install --no-cache-dir "jax[tpu]>=0.9,<0.11" numpy \
-        -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# JAX with its CUDA 12 plugin (pulls the CUDA runtime wheels), at the
+# tested version.
+RUN pip install --no-cache-dir "jax[cuda12]==0.9.0" numpy
 
 WORKDIR /app
 COPY mvtrim_tpu/ mvtrim_tpu/

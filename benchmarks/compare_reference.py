@@ -7,12 +7,11 @@ and prints a comparison table.
 
 Usage: python benchmarks/compare_reference.py [--duration 120] [--runs 2]
 
-Notes on reading the numbers on a shared/dev TPU environment: the rebuild
-pays a one-time jit compilation ("warmup(jit)" phase) that production
-hosts amortize via the persistent compilation cache or long-lived batch
-processes; marginal_per_video_sec excludes it (what each additional video
-costs in batch/daemon operation), wall_sec includes it plus interpreter
-startup.
+Notes on reading the numbers: the rebuild pays a one-time jit
+compilation ("warmup(jit)" phase) that production hosts amortize via the
+persistent compilation cache or long-lived batch processes;
+marginal_per_video_sec excludes it (what each additional video costs in
+batch/daemon operation), wall_sec includes it plus interpreter startup.
 """
 
 from __future__ import annotations
@@ -87,7 +86,7 @@ def main() -> int:
             "wall_sec_runs": [round(w, 2) for w in ref_walls],
             "frames_per_sec": round(frames / ref_med),
         },
-        "rebuild_tpu": {
+        "rebuild": {
             "wall_sec": round(median(our_walls), 2),
             "marginal_per_video_sec": round(our_med, 2),
             "marginal_per_video_runs": [round(w, 2) for w in our_marginals],

@@ -6,8 +6,8 @@ optional directory watcher, and the wall-clock/speedup summary.
 
 Differences from the reference, by design:
 * CPU pinning / disjoint cpusets disappear — decode threads are scheduled
-  by the OS and analysis batches share the device; on multi-chip meshes
-  streams are assigned to chips round-robin (parallel/mesh.py) instead of
+  by the OS and analysis batches share the device; on multi-card hosts
+  streams are assigned to cards round-robin (parallel/mesh.py) instead of
   to cpusets.
 * stream workers are threads, not pinned OS threads: the native decode
   layer releases the GIL, so N streams decode genuinely in parallel.
@@ -210,10 +210,10 @@ class BatchProcessor:
                     log.info(f"[Watch] Monitoring directory: {input_dir} "
                              "(Waiting for new files...)")
                 if rss_limit > 0:
-                    # RSS watchdog: long-lived daemons on leaky transports
-                    # (e.g. HTTP-tunneled PJRT clients — see
-                    # benchmarks/soak_watch.py) grow without a framework
-                    # bug; past the bound we drain and exit so the
+                    # RSS watchdog: a long-lived daemon can grow without a
+                    # framework bug (a leaking linked library, allocator
+                    # fragmentation — benchmarks/soak_watch.py measures
+                    # it); past the bound we drain and exit so the
                     # supervisor (docker-compose restart policy, systemd)
                     # relaunches a fresh process.
                     rss = system.rss_mb()
@@ -258,13 +258,10 @@ class BatchProcessor:
 
     def _stream_worker(self, stream_id: int, threads_per_stream: int,
                        output_dir: str, cut_queue: CutQueue) -> None:
-        # multi-chip: each stream's device dispatches land on its own chip
-        # (round-robin), replacing the reference's disjoint cpusets
-        import jax
+        # multi-card: each stream's device dispatches land on its own card
+        from ..parallel.mesh import stream_device
 
-        devices = jax.devices()
-        device = devices[stream_id % len(devices)] if len(devices) > 1 \
-            else None
+        device = stream_device(stream_id)
         if device is not None:
             log.info(f"Analysis device: {device}", stream_id)
 

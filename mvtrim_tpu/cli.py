@@ -12,6 +12,7 @@ import sys
 
 from .batch.batch import BatchProcessor, list_videos
 from .core.config import Config
+from .models.backend import resolve_backend
 from .pipeline.pipeline import ProcessingPipeline
 from .utils import logging as log
 
@@ -22,13 +23,13 @@ def main(argv: list[str] | None = None) -> int:
         log.warn("Usage: motion_trim <input> <output>")
         return 1
 
-    # MVT_JAX_PLATFORM=cpu -> device-free daemon / leak triage
-    from .utils.system import apply_platform_override
-
-    apply_platform_override()
-
     input_arg, output_arg = argv[0], argv[1]
     cfg = Config.from_env()
+    try:
+        resolve_backend(cfg.scan_backend)
+    except ValueError as e:
+        log.error(str(e))
+        return 1
 
     if os.path.isdir(input_arg):
         os.makedirs(output_arg, exist_ok=True)

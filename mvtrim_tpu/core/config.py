@@ -5,8 +5,8 @@ The reference reads 14 environment variables lazily with memoized getters
 names and *code* defaults (the reference README documents different values;
 the code wins — see SURVEY.md §5 "Known inconsistencies").
 
-Additional TPU-only knobs are grouped at the bottom and are all prefixed
-``MVT_`` so the reference's namespace stays untouched.
+Additional knobs of this rebuild are grouped at the bottom and are all
+prefixed ``MVT_`` so the reference's namespace stays untouched.
 """
 
 from __future__ import annotations
@@ -88,10 +88,10 @@ class Config:
     threads_per_stream: int = 0
     watch_mode: bool = False
 
-    # --- TPU-native additions (not in reference) ---
+    # --- additions of this rebuild (not in reference) ---
     device_batch: int = 2048         # frames per device dispatch (fewer, larger
                                      # dispatches amortize per-dispatch cost)
-    scan_backend: str = "auto"       # auto | tpu | xla | oracle
+    scan_backend: str = "auto"       # auto (device) | oracle (NumPy)
     ffmpeg_bin: str = ""             # optional external ffmpeg for the cut
     sad_threshold: float = 12.0      # mean-abs-diff per-pixel threshold (SAD path)
     decode_workers: int = 0          # host decode threads (0 = auto)
@@ -101,12 +101,9 @@ class Config:
     archive_mode: bool = False       # single-file mode: shard scan over mesh
     checkpoint_path: str = ""        # archive-scan resume sidecar (JSONL)
     heatmap_path: str = ""           # write a spatial activity JSON per video
-    scan_input: str = "bits"         # bits | grids | mv_raw (H2D payload)
+    scan_input: str = "bits"         # bits | words | grids | mv_raw (H2D payload)
     mv_capacity: int = 8192          # raw-MV rows per frame (mv_raw path)
     rss_limit_mb: float = 0.0        # watch-mode RSS watchdog (0 = off)
-    compile_cache_dir: str = ""      # persistent jit-compile cache directory
-                                     # ("" = off); collapses cold-process
-                                     # warmup(jit) to a cache read
     cut_cpuset: str = ""             # pin cut work to these CPUs ("0-3,8"
                                      # grammar).  Analog of the reference
                                      # wrapping its ffmpeg child in
@@ -157,7 +154,6 @@ class Config:
             scan_input=_env_str("MVT_SCAN_INPUT", "bits"),
             mv_capacity=_env_int("MVT_MV_CAPACITY", 8192),
             rss_limit_mb=_env_float("MVT_RSS_LIMIT_MB", 0.0),
-            compile_cache_dir=_env_str("MVT_COMPILE_CACHE", ""),
             cut_cpuset=_env_str("MVT_CUT_CPUSET", ""),
             chunk_frames_cap=_env_int("MVT_CHUNK_FRAMES_CAP", 0),
         )

@@ -1,7 +1,7 @@
 """Bit-parity oracle: the reference's analysis math in plain NumPy.
 
-This module freezes the exact semantics of the C++ hot loops so the Pallas /
-XLA kernels can be tested against it:
+This module freezes the exact semantics of the C++ hot loops so the device
+ops can be tested against it:
 
 * ``vote_grid``      — reference motion_scanner.cpp:242-268 (phase 1)
 * ``count_clusters`` — reference motion_scanner.cpp:277-293 (phase 2)
@@ -55,6 +55,33 @@ def vote_grid(mvs: np.ndarray, gw: int, gh: int, *, threshold_sq: float,
             if grid[gy, gx] < 255:
                 grid[gy, gx] += 1
     return grid
+
+
+def vote_grids_batch(mvs: np.ndarray, counts: np.ndarray, gw: int, gh: int,
+                     *, threshold_sq: float, block_shift: int, y_min: int,
+                     y_max: int) -> np.ndarray:
+    """Vectorized NumPy equivalent of vote_grid over a padded batch.
+
+    ``mvs`` is int [B, M, 4] rows of (dst_x, dst_y, src_x, src_y), of
+    which the first ``counts[b]`` of frame b are real.  Returns uint8
+    votes [B, gh, gw].  Same semantics as the per-row loop (tested
+    against it); exists so the 'oracle' scan backend stays usable on
+    long videos.
+    """
+    mvs = np.asarray(mvs, dtype=np.int64)
+    b, m, _ = mvs.shape
+    dst_x, dst_y, src_x, src_y = np.moveaxis(mvs, -1, 0)
+    dx = dst_x - src_x
+    dy = dst_y - src_y
+    mag_sq = ((dx * dx + dy * dy + (1 << 31)) % (1 << 32)) - (1 << 31)
+    gx = dst_x >> block_shift
+    gy = dst_y >> block_shift
+    keep = ((np.arange(m) < np.asarray(counts)[:, None])
+            & ~(mag_sq < threshold_sq)
+            & (gx >= 0) & (gx < gw) & (gy >= y_min) & (gy < y_max))
+    cell = (np.arange(b)[:, None] * gh + gy) * gw + gx
+    votes = np.bincount(cell[keep], minlength=b * gh * gw)
+    return np.minimum(votes, 255).astype(np.uint8).reshape(b, gh, gw)
 
 
 def count_clusters(grid: np.ndarray, *, vectors_needed: int, y_min: int,

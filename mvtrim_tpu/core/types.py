@@ -1,9 +1,9 @@
 """Core value types (reference include/motion_trim/types.hpp:33-96).
 
 The reference's ``PaddedAtomic``/cache-line games exist to serve a scalar CPU
-hot loop; on TPU the hot loop is a batched kernel, so only the semantic types
-survive: time segments, scan tasks, and the grid geometry bundle consumed by
-the device kernels.
+hot loop; here the hot loop is a batched device program, so only the
+semantic types survive: time segments, scan tasks, and the grid geometry
+bundle consumed by the device ops.
 """
 
 from __future__ import annotations
@@ -38,7 +38,11 @@ class GridGeometry:
 
     gw/gh: vote-grid dims (frame dims ceil-divided by block size);
     y_min/y_max: vertical mask window (motion_scanner.cpp:237-238);
-    padded dims are the TPU lane/sublane-aligned extents.
+    padded dims round gw up to 128 and gh up to 8.  Nothing on the GPU
+    needs that alignment; the ops in ops/cluster.py rely on the zero
+    margin it leaves (wrapped rolls land in zero cells or outside the
+    center mask), and SAD luma is padded to it, which ships ~14% extra
+    H2D bytes per 1080p frame.  A layout to re-decide by measurement.
     """
 
     width: int

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -34,12 +35,15 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
 # v10: adds mvt_libav_versions (doctor tool reports the linked FFmpeg).
 # v11: mvt_scan_grids_multi grows a per-frame has_mv out-param so
 # vec_needed<=0 sweeps can apply the reference's `!sd -> false` rule.
-_ABI_VERSION = 11
+# v12: adds mvt_libav_check (refuses a libav laid out otherwise than the
+# library was compiled against; see native/libav_abi.h).
+_ABI_VERSION = 12
 
 
 def _rebuild() -> None:
-    subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                   capture_output=True)
+    # PYTHON: native/find_libav.py searches this interpreter's packages.
+    subprocess.run(["make", "-C", _NATIVE_DIR, f"PYTHON={sys.executable}"],
+                   check=True, capture_output=True)
 
 
 def _lib_abi(lib) -> int:
@@ -90,6 +94,11 @@ def _load_library():
                 raise OSError(
                     f"{so_path} has ABI {_lib_abi(lib)}, expected "
                     f"{_ABI_VERSION}; rebuild with `make -C native`")
+        err = ctypes.create_string_buffer(256)
+        lib.mvt_libav_check.restype = ctypes.c_int
+        lib.mvt_libav_check.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        if lib.mvt_libav_check(err, len(err)) != 0:
+            raise OSError(f"{so_path}: {err.value.decode()}")
 
         lib.mvt_open.restype = ctypes.c_void_p
         lib.mvt_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
@@ -592,6 +601,35 @@ def libav_versions() -> dict[str, str]:
     return {"avformat": fmt(vals[0].value),
             "avcodec": fmt(vals[1].value),
             "avutil": fmt(vals[2].value)}
+
+
+_synth_codec: str | None = None
+
+
+def synth_codec() -> str:
+    """The encoder ``synthesize`` uses on this host: libx264 where the
+    linked libavcodec has it, else mpeg4, FFmpeg's own encoder, which builds
+    without GPL libraries (such as the FFmpeg inside the opencv-python
+    wheels) also carry.  Cached per process; RuntimeError when neither
+    encodes."""
+    global _synth_codec
+    if _synth_codec is None:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as td:
+            for codec in ("libx264", "mpeg4"):
+                try:
+                    synthesize(os.path.join(td, f"{codec}.mp4"), width=64,
+                               height=64, duration=0.2, codec=codec,
+                               motion_windows=())
+                except RuntimeError:
+                    continue
+                _synth_codec = codec
+                break
+            else:
+                raise RuntimeError("the linked libavcodec has neither the "
+                                   "libx264 nor the mpeg4 encoder")
+    return _synth_codec
 
 
 _hevc_mv_capable: bool | None = None

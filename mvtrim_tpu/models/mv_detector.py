@@ -19,14 +19,20 @@ from ..core.config import Config
 from ..core.types import GridGeometry
 from ..ops import cluster as cluster_ops
 from ..ops import mv_vote
+from .backend import resolve_backend
 
 
-def resolve_backend(requested: str) -> str:
-    """auto -> xla everywhere (measured fastest for the bandwidth-bound
-    cluster op on v5e); pallas/xla/oracle pass through."""
-    if requested in ("auto", "tpu"):
-        return "xla"
-    return requested
+def _resolver(futures, n: int):
+    """Zero-arg callable that blocks on each dispatched batch's motion
+    and gathers motion bool [n]; ``futures`` holds (lo, hi, motion) per
+    batch, whose rows past hi - lo are padding."""
+    def resolve():
+        out = np.zeros((n,), bool)
+        for lo, hi, motion in futures:
+            out[lo:hi] = np.asarray(motion)[:hi - lo]
+        return out
+
+    return resolve
 
 
 class MVClusterDetector:
@@ -44,36 +50,23 @@ class MVClusterDetector:
         self.cfg = cfg or Config.from_env()
         self.geom = GridGeometry.build(width, height, self.cfg)
         self.backend = resolve_backend(self.cfg.scan_backend)
-        # multiple of 8 so every kernel's sublane-aligned block search
-        # terminates (pad frames are zero grids = no motion, sliced off)
-        self.device_batch = ((max(8, self.cfg.device_batch) + 7) // 8) * 8
-        if self.backend == "pallas":
-            # the cached pallas program tiles the batch in blocks of 128
-            self.device_batch = ((self.device_batch + 127) // 128) * 128
-        # optional pinned device: multi-chip batch mode places each video
-        # stream's analysis on its own chip (parallel/mesh.py assignment)
+        # pad frames are zero grids = no motion, sliced off in resolve
+        self.device_batch = max(1, self.cfg.device_batch)
+        # optional pinned device: multi-card batch mode places each video
+        # stream's analysis on its own card (parallel/mesh.py assignment)
         self.device = device
-        self._op = None
+        self._bits_op = None  # word-domain op (see scan_bits_async)
         self._mv_op = None
-        self._bits_op = None  # word-domain packed op (see scan_bits_async)
-        self._bits_transposed = False  # set when the bits op is built
 
-    # --- forward over host-scattered vote grids (default path) ---
-
-    def _build_op(self):
-        if self._op is None:
-            # route through the process-wide cache so detectors for videos
-            # sharing a geometry+config reuse one compiled program (compile
-            # is tens of seconds on remote-compile TPU environments)
-            self._op = cluster_ops._cached_op(
-                self.geom, self.cfg.vectors_needed, self.cfg.clusters_needed,
-                self.backend, False)
-        return self._op
+    # --- forward over host-scattered vote grids ---
 
     def forward_padded(self, votes_padded):
         """jittable forward: votes uint8 [device_batch, GH_p, GW_p] ->
-        (cluster counts int32 [B], motion bool [B])."""
-        return self._build_op()(votes_padded)
+        (cluster counts int32 [B], motion bool [B]).  The op is cached
+        process-wide per (geometry, config)."""
+        return cluster_ops.make_cluster_op_xla(
+            self.geom, self.cfg.vectors_needed,
+            self.cfg.clusters_needed)(votes_padded)
 
     def scan_votes_async(self, grids: np.ndarray):
         """Dispatch vote grids uint8 [N, gh, gw]; return a resolver.
@@ -100,58 +93,17 @@ class MVClusterDetector:
             hi = min(lo + db, n)
             batch = np.zeros((db, gh_p, gw_p), np.uint8)
             batch[:hi - lo, :grids.shape[1], :grids.shape[2]] = grids[lo:hi]
-            if self.device is not None:
-                batch = jax.device_put(batch, self.device)
-            _, motion = self.forward_padded(jnp.asarray(batch))
+            _, motion = self.forward_padded(
+                jax.device_put(batch, self.device))
             futures.append((lo, hi, motion))
 
-        def resolve():
-            out = np.zeros((n,), bool)
-            for lo, hi, motion in futures:
-                out[lo:hi] = np.asarray(motion)[:hi - lo]
-            return out
-
-        return resolve
+        return _resolver(futures, n)
 
     def scan_votes(self, grids: np.ndarray) -> np.ndarray:
         """Host entry: vote grids uint8 [N, gh, gw] -> motion bool [N]."""
         return self.scan_votes_async(grids)()
 
     # --- forward over bit-packed activity masks (default product path) ---
-
-    def _bits_backend(self) -> str:
-        """Word-domain kernel choice: the Pallas kernel (bitwise
-        neighbors + hardware popcount on 32-cell int32 lanes, ~4-6x the
-        XLA build on v5e) wherever a real accelerator backs jax; the XLA
-        build on the CPU backend (Pallas TPU kernels don't run there
-        outside interpret mode)."""
-        if self.backend == "pallas":
-            return "pallas"
-        if self.cfg.scan_backend in ("auto", "tpu"):
-            if jax.default_backend() != "cpu":
-                return "pallas"
-        return "xla"
-
-    def _build_bits_op(self):
-        if self._bits_op is None:
-            backend = self._bits_backend()
-            db = self.device_batch
-            if backend == "pallas":
-                # transposed kernel: block_b is the LANE dim, so it must
-                # be a multiple of 128 (Mosaic tile alignment) or equal
-                # to the batch; best block measured at 1024
-                block_b = next(
-                    (c for c in (1024, 512, 256, 128) if db % c == 0), db)
-            else:
-                # lane-major kernel: block_b is the sublane dim
-                block_b = min(512, db)
-                while db % block_b:
-                    block_b -= 8
-                block_b = max(8, block_b)
-            self._bits_transposed = backend == "pallas"
-            self._bits_op = cluster_ops._cached_bits_op(
-                self.geom, self.cfg.clusters_needed, backend, block_b)
-        return self._bits_op
 
     def scan_bits_async(self, bits: np.ndarray):
         """Dispatch bit-packed activity masks uint8 [N, gh, ceil(gw/8)]
@@ -188,9 +140,8 @@ class MVClusterDetector:
 
     def _words_dispatch(self, get_rows, n: int):
         """Shared batch/dispatch/resolve loop over word-layout rows —
-        the single place the bits and words scan inputs pad, lay out
-        (transposed: words on sublanes, frames on lanes — the layout the
-        fastest kernel wants), place, and dispatch batches.
+        the single place the bits and words scan inputs pad, place, and
+        dispatch batches.
 
         ``get_rows(lo, hi) -> int32 [hi-lo, used]`` supplies each
         batch's word rows (scan_bits_async repacks per batch so the
@@ -200,30 +151,19 @@ class MVClusterDetector:
         """
         db = self.device_batch
         _, used, lanes = cluster_ops.word_geometry(self.geom)
-        op = self._build_bits_op()
-        transposed = self._bits_transposed
+        if self._bits_op is None:
+            self._bits_op = cluster_ops.make_cluster_words_op_xla(
+                self.geom, self.cfg.clusters_needed)
+        op = self._bits_op
         futures = []
         for lo in range(0, n, db):
             hi = min(lo + db, n)
-            rows = get_rows(lo, hi)
-            if transposed:
-                batch = np.zeros((lanes, db), np.int32)
-                batch[:used, :hi - lo] = rows.T
-            else:
-                batch = np.zeros((db, lanes), np.int32)
-                batch[:hi - lo, :used] = rows
-            if self.device is not None:
-                batch = jax.device_put(batch, self.device)
-            _, motion = op(jnp.asarray(batch))
+            batch = np.zeros((db, lanes), np.int32)
+            batch[:hi - lo, :used] = get_rows(lo, hi)
+            _, motion = op(jax.device_put(batch, self.device))
             futures.append((lo, hi, motion))
 
-        def resolve():
-            out = np.zeros((n,), bool)
-            for lo, hi, motion in futures:
-                out[lo:hi] = np.asarray(motion)[:hi - lo]
-            return out
-
-        return resolve
+        return _resolver(futures, n)
 
     def scan_words_async(self, words: np.ndarray):
         """Dispatch word-layout activity masks int32 [N, gh*gww] (the
@@ -257,10 +197,7 @@ class MVClusterDetector:
         # one op regardless of MV capacity M: the jitted program retraces
         # per input shape, nothing here bakes M
         if self._mv_op is None:
-            maker = (mv_vote.make_mv_cluster_op_pallas
-                     if self.backend == "pallas"
-                     else mv_vote.make_mv_cluster_op_xla)
-            self._mv_op = maker(
+            self._mv_op = mv_vote.make_mv_cluster_op_xla(
                 self.geom, threshold_sq=self.cfg.mv_threshold_sq,
                 block_shift=self.cfg.block_shift,
                 vectors_needed=self.cfg.vectors_needed,
@@ -288,6 +225,18 @@ class MVClusterDetector:
                 f"M={mvs.shape[1]} (max real count {need}); re-scan with "
                 f"a larger max_mv — a truncated list cannot be decided "
                 f"exactly")
+        if self.backend == "oracle":
+            g = self.geom
+            votes = oracle.vote_grids_batch(
+                mvs, counts, g.gw, g.gh, threshold_sq=self.cfg.mv_threshold_sq,
+                block_shift=self.cfg.block_shift, y_min=g.y_min,
+                y_max=g.y_max)
+            clusters = oracle.count_clusters_batch(
+                votes, vectors_needed=self.cfg.vectors_needed,
+                y_min=g.y_min, y_max=g.y_max)
+            motion = ((clusters >= oracle.effective_clusters_needed(
+                self.cfg.clusters_needed)) & (counts > 0))
+            return lambda: motion
         op = self._build_mv_op()
         # pad each dispatch to a power-of-two bucket in [256, device_batch]
         # (zero-count pad frames decide False and are sliced off in
@@ -304,21 +253,14 @@ class MVClusterDetector:
             batch[:hi - lo] = mvs[lo:hi]
             cnts = np.zeros((bucket,), np.int32)
             cnts[:hi - lo] = counts[lo:hi]
-            if self.device is not None:
-                batch = jax.device_put(batch, self.device)
-            fields = jnp.asarray(batch).astype(jnp.int32)
+            batch = jax.device_put(batch, self.device)
+            cnts = jax.device_put(cnts, self.device)
+            fields = batch.astype(jnp.int32)
             _, motion = op(fields[..., 0], fields[..., 1],
-                           fields[..., 2], fields[..., 3],
-                           jnp.asarray(cnts))
+                           fields[..., 2], fields[..., 3], cnts)
             futures.append((lo, hi, motion))
 
-        def resolve():
-            out = np.zeros((n,), bool)
-            for lo, hi, motion in futures:
-                out[lo:hi] = np.asarray(motion)[:hi - lo]
-            return out
-
-        return resolve
+        return _resolver(futures, n)
 
     def scan_raw_mvs(self, mvs: np.ndarray, counts: np.ndarray) -> np.ndarray:
         """Host entry for the raw-MV path (see scan_raw_mvs_async)."""

@@ -1,6 +1,6 @@
 """SADDetector — pixel-domain fallback detector (no codec MVs needed).
 
-Feeds decoded luma planes through the block-SAD kernels (ops/sad.py).
+Feeds decoded luma planes through the block-SAD op (ops/sad.py).
 Within a chunk, each analyzed frame is compared to the previous analyzed
 frame; a chunk's first frame has no predecessor and is never motion (the
 MV path behaves the same way: the first decodable frame after a seek is an
@@ -11,33 +11,39 @@ host decode stays embarrassingly parallel.
 from __future__ import annotations
 
 import numpy as np
-import jax.numpy as jnp
 
+from ..core import oracle
 from ..core.config import Config
 from ..core.types import GridGeometry
 from ..ops import sad as sad_ops
+from .backend import resolve_backend
 
 
 def sad_oracle_counts(luma: np.ndarray, geom: GridGeometry, *,
                       sad_threshold: float, block_size: int) -> np.ndarray:
-    """NumPy contract for the SAD path: counts[i] for frame i vs i-1."""
-    from ..core.oracle import count_clusters_batch
+    """NumPy contract for the SAD path: counts[i] for frame i vs i-1.
 
-    x = luma.astype(np.int64)
-    diff = np.abs(x[1:] - x[:-1])
-    n, h, w = diff.shape
+    Blocks cut by the frame edge sum only their in-frame pixels.  Frames
+    are differenced one at a time in int16, so a long 1080p chunk costs
+    a few frames of temporaries, not a widened copy of the whole chunk.
+    """
+    n = luma.shape[0] - 1
+    h, w = luma.shape[1:]
     gh, gw = geom.gh, geom.gw
-    sad = np.zeros((n, gh, gw), np.int64)
-    for by in range(gh):
-        for bx in range(gw):
-            blk = diff[:, by * block_size:(by + 1) * block_size,
-                       bx * block_size:(bx + 1) * block_size]
-            sad[:, by, bx] = blk.sum(axis=(1, 2))
+    sad = np.zeros((max(n, 0), gh, gw), np.int64)
+    for i in range(n):
+        diff = np.abs(luma[i + 1].astype(np.int16)
+                      - luma[i].astype(np.int16))
+        blocks = np.zeros((gh * block_size, gw * block_size), np.int32)
+        hh, ww = min(h, gh * block_size), min(w, gw * block_size)
+        blocks[:hh, :ww] = diff[:hh, :ww]
+        sad[i] = blocks.reshape(gh, block_size, gw, block_size).sum(
+            axis=(1, 3))
     bound = sad_ops.sad_threshold_sum(sad_threshold, block_size)
     active = (sad >= bound).astype(np.uint8)
     # reuse the cluster rule with votes=1, threshold=1
-    return count_clusters_batch(active, vectors_needed=1,
-                                y_min=geom.y_min, y_max=geom.y_max)
+    return oracle.count_clusters_batch(active, vectors_needed=1,
+                                       y_min=geom.y_min, y_max=geom.y_max)
 
 
 class SADDetector:
@@ -46,35 +52,27 @@ class SADDetector:
     def __init__(self, width: int, height: int, cfg: Config | None = None,
                  device=None):
         self.cfg = cfg or Config.from_env()
-        # pin dispatches to one chip (multi-chip batch mode round-robin)
+        # pin dispatches to one card (multi-card batch mode round-robin)
         self.device = device
         self.geom = GridGeometry.build(width, height, self.cfg)
-        self.width = width
-        self.height = height
-        backend = self.cfg.scan_backend
-        if backend in ("auto", "tpu"):
-            # the pallas SAD kernel (per-frame VMEM diff + MXU block
-            # reduction) measures ~6x the XLA reduce_window build on v5e;
-            # the CPU test backend can only run the XLA build
-            import jax
-
-            backend = "xla" if jax.default_backend() == "cpu" else "pallas"
-        elif backend == "oracle":
-            backend = "xla"
-        self.backend = backend
+        self.backend = resolve_backend(self.cfg.scan_backend)
         self._op = None
         # device batch for luma is small: 1080p luma is ~2MB/frame
         self.device_batch = min(64, max(8, self.cfg.device_batch // 8))
 
     def _build_op(self):
         if self._op is None:
-            if self.backend == "pallas":
-                self._op = sad_ops.make_sad_op_pallas(
-                    self.geom, sad_threshold=self.cfg.sad_threshold,
-                    block_size=self.cfg.block_size,
-                    clusters_needed=self.cfg.clusters_needed,
-                    height=self.height, width=self.width,
-                    device=self.device)
+            if self.backend == "oracle":
+                geom, cfg = self.geom, self.cfg
+                need = oracle.effective_clusters_needed(cfg.clusters_needed)
+
+                def host_op(luma):
+                    counts = sad_oracle_counts(
+                        luma, geom, sad_threshold=cfg.sad_threshold,
+                        block_size=cfg.block_size)
+                    return counts, counts >= need
+
+                self._op = host_op
             else:
                 self._op = sad_ops.make_sad_op_xla(
                     self.geom, sad_threshold=self.cfg.sad_threshold,
@@ -104,10 +102,6 @@ class SADDetector:
         op = self._build_op()
         padded = sad_ops.pad_luma(luma, self.geom, self.cfg.block_size)
         db = self.device_batch
-        f = getattr(op, "frames_per_step", 1)
-        # windows a multiple of the kernel's frames-per-step: otherwise
-        # the op pads with a full np.concatenate copy every dispatch
-        db = max(f, (db // f) * f)
         # window batches of db+1 frames overlapping by one (the carry);
         # one reused buffer (a fresh np.zeros per window costs a full
         # clear + page faults on the host decode core).  Virtual frame v
@@ -124,8 +118,6 @@ class SADDetector:
                 batch[:hi - lo + 1] = padded[lo - off:hi + 1 - off]
             if hi - lo < db:
                 batch[hi - lo + 1:] = 0
-            # host array in: the pallas op splits carry/frames host-side
-            # (zero-copy views) before its single H2D put
             _, motion = op(batch)
             out[lo + 1 - off:hi + 1 - off] = np.asarray(motion)[:hi - lo]
         return out

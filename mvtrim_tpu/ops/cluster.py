@@ -1,8 +1,8 @@
-"""Cluster-detection device kernels.
+"""Cluster-detection device ops.
 
 Replaces the per-frame scalar phase-2 loop (reference
-motion_scanner.cpp:277-293) with a batched, branch-free kernel over
-``[B, GH, GW]`` uint8 vote grids:
+motion_scanner.cpp:277-293) with a batched, branch-free program over
+``[B, GH, GW]`` vote grids:
 
   active(c)   = votes(c) >= vectors_needed
   cluster(c)  = active(c) AND any 4-neighbor active, for centers with
@@ -14,14 +14,10 @@ in-allocation rows (and *defining* the margin==0 case the reference leaves
 as UB — motion_scanner.cpp:285-286).  The reference's early exit at the
 Nth cluster is replaced by a full count + compare: identical decision.
 
-Two implementations with identical semantics:
-  * ``xla``    — pure jnp; XLA fuses compare/shift/reduce into one pass.
-  * ``pallas`` — explicit VMEM kernel tiled over the batch; keeps all
-                 intermediates on-chip, one HBM read of the votes and one
-                 int32 write per frame.
-
-Both are built per-(geometry, config) and jit-cached; all thresholds are
-static so the compiled program is branch-free.
+Three payload layouts share that rule: uint8 vote grids (``grids``),
+bit-packed activity bytes (the mesh archive step) and int32 words of 32
+cells (the detector's ``bits``/``words`` inputs).  Every op here is plain
+``jax.numpy``: XLA fuses the shifts, masks and reduction into one pass.
 """
 
 from __future__ import annotations
@@ -30,8 +26,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from ..core.types import GridGeometry
 
@@ -61,37 +56,17 @@ def _center_mask(geom: GridGeometry, padded_gh: int, padded_gw: int):
             & (xs >= 1) & (xs <= geom.gw - 2))
 
 
-def _cluster_map(votes_i32, geom: GridGeometry, vectors_needed: int):
-    """Shared math: int32 votes [..., GH, GW] -> bool cluster map [..., GH, GW]."""
-    vec_need = jnp.int32(vectors_needed)
-    active = votes_i32 >= vec_need
-    # any 4-neighbor >= vec_need  <=>  max of 4-neighbors >= vec_need.
-    # The max formulation compiles to fewer vector ops and (unlike a chain
-    # of four compare+or) stays within Mosaic's layout budget at large
-    # batch blocks.
-    neighbor_max = jnp.maximum(
-        jnp.maximum(_shift2d(votes_i32, 0, 1), _shift2d(votes_i32, 0, -1)),
-        jnp.maximum(_shift2d(votes_i32, 1, 0), _shift2d(votes_i32, -1, 0)),
-    )
-    mask = _center_mask(geom, votes_i32.shape[-2], votes_i32.shape[-1])
-    return active & (neighbor_max >= vec_need) & mask
-
-
-def _cluster_body(votes_i32, geom: GridGeometry, vectors_needed: int):
-    """int32 votes [..., GH, GW] -> int32 cluster counts [...] (XLA path)."""
-    cluster = _cluster_map(votes_i32, geom, vectors_needed)
-    return jnp.sum(cluster.astype(jnp.int32), axis=(-2, -1))
-
-
 def cluster_counts_traced(votes_i32, geom: GridGeometry, vec_need):
-    """Cluster counts with a *traced* activity threshold.
+    """int32 votes [..., GH, GW] -> int32 cluster counts [...].
 
-    Same math as _cluster_map/_cluster_body but ``vec_need`` is a traced
-    int32 scalar instead of a compile-time constant — the single source of
-    the cluster rule for the sweep ops, the SAD path, and the mesh-sharded
-    scan step (which all vary the threshold as data).
+    ``vec_need`` may be a Python int or a traced int32 scalar — the single
+    source of the cluster rule for the detector ops, the sweep ops, the
+    SAD path and the mesh-sharded scan steps (which vary the threshold as
+    data).
     """
+    vec_need = jnp.asarray(vec_need, jnp.int32)
     active = votes_i32 >= vec_need
+    # any 4-neighbor >= vec_need  <=>  max of 4-neighbors >= vec_need
     neighbor_max = jnp.maximum(
         jnp.maximum(_shift2d(votes_i32, 0, 1), _shift2d(votes_i32, 0, -1)),
         jnp.maximum(_shift2d(votes_i32, 1, 0), _shift2d(votes_i32, -1, 0)),
@@ -108,120 +83,26 @@ def pad_votes(votes, geom: GridGeometry):
                            (0, geom.padded_gw - gw)))
 
 
+@functools.lru_cache(maxsize=64)
 def make_cluster_op_xla(geom: GridGeometry, vectors_needed: int,
                         clusters_needed: int):
-    """jnp implementation: votes_u8 [B, GH, GW] -> (counts i32, motion bool)."""
+    """votes_u8 [B, GH, GW] -> (counts i32, motion bool).
+
+    Cached per (geometry, config): detectors for videos sharing a
+    geometry reuse one compiled program."""
 
     @jax.jit
     def op(votes):
-        counts = _cluster_body(votes.astype(jnp.int32), geom, vectors_needed)
-        return counts, counts >= jnp.int32(max(1, clusters_needed))
-
-    return op
-
-
-def cluster_map_kernel(v_i32, geom: GridGeometry, vectors_needed: int):
-    """In-kernel cluster map over int32 votes [..., GH, GW] (Mosaic body).
-
-    Uses native lane/sublane rotates (pltpu.roll) for the 4-neighbor max
-    when the geometry has padding margin: with gh < padded_gh and
-    gw < padded_gw, every wrapped-in row/column is either the zero
-    padding (same value _shift2d's zero fill produces) or lands outside
-    the center mask — bit-identical semantics, no padded int32 copies.
-    The neighbor-and-active test folds to one compare via
-    min(v, neighbor_max) >= t  <=>  v >= t AND neighbor_max >= t.
-    Falls back to the shift/pad formulation when the grid exactly fills
-    the padded tile (no margin to wrap through).
-    """
-    from jax.experimental.pallas import tpu as _pltpu
-
-    gh_p, gw_p = v_i32.shape[-2], v_i32.shape[-1]
-    thr = jnp.int32(vectors_needed)
-    mask = _center_mask(geom, gh_p, gw_p)
-    if geom.gh < gh_p and geom.gw < gw_p:
-        neighbor_max = jnp.maximum(
-            jnp.maximum(_pltpu.roll(v_i32, 1, v_i32.ndim - 1),
-                        _pltpu.roll(v_i32, gw_p - 1, v_i32.ndim - 1)),
-            jnp.maximum(_pltpu.roll(v_i32, 1, v_i32.ndim - 2),
-                        _pltpu.roll(v_i32, gh_p - 1, v_i32.ndim - 2)),
-        )
-        return (jnp.minimum(v_i32, neighbor_max) >= thr) & mask
-    return _cluster_map(v_i32, geom, vectors_needed)
-
-
-def make_cluster_op_pallas(geom: GridGeometry, vectors_needed: int,
-                           clusters_needed: int, block_b: int = 64,
-                           interpret: bool = False):
-    """Pallas implementation, tiled over the frame batch.
-
-    Input votes must be padded to [B, geom.padded_gh, geom.padded_gw] with
-    B a multiple of block_b.  Output is ([B] i32 counts, [B] bool motion).
-    """
-    gh_p, gw_p = geom.padded_gh, geom.padded_gw
-    body = _cluster_map if interpret else cluster_map_kernel
-
-    def kernel(votes_ref, counts_ref):
-        v = votes_ref[:].astype(jnp.int32)          # [block_b, GH, GW]
-        cluster = body(v, geom, vectors_needed).astype(jnp.int32)
-        # Mosaic requires >=2D shapes at every reduction step: reduce the
-        # lane dim first, then the sublane dim with keepdims -> [block_b, 1].
-        row_sums = jnp.sum(cluster, axis=2)                 # [block_b, GH]
-        counts_ref[:] = jnp.sum(row_sums, axis=1, keepdims=True)
-
-    @jax.jit
-    def op(votes):
-        b = votes.shape[0]
-        assert b % block_b == 0, (b, block_b)
-        counts = pl.pallas_call(
-            kernel,
-            grid=(b // block_b,),
-            in_specs=[pl.BlockSpec((block_b, gh_p, gw_p),
-                                   lambda i: (i, 0, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((block_b, 1), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((b, 1), jnp.int32),
-            interpret=interpret,
-        )(votes)
-        counts = counts[:, 0]
-        return counts, counts >= jnp.int32(max(1, clusters_needed))
-
-    return op
-
-
-def make_cluster_bits_op_xla(geom: GridGeometry, clusters_needed: int):
-    """Unpack-based reference formulation: bits uint8 [B, gh, ceil(gw/8)]
-    -> (counts i32, motion bool).
-
-    The host packs the *thresholded* activity mask (native mvt_scan_bits:
-    bit k of byte j = cell x=j*8+k had votes >= VECTORS_NEEDED); this op
-    unpacks to a 0/1 grid and runs the unpacked cluster rule with an
-    effective vote threshold of 1.  Scope: differential-testing oracle
-    for the packed-domain kernels (test_kernels.py cross-checks the
-    byte/word SWAR math against this independent formulation) — product
-    paths use word_cluster_counts (detector) / packed_cluster_counts
-    (archive), which are faster.
-    """
-    gh, gw = geom.gh, geom.gw
-    gwb = (gw + 7) // 8
-
-    @jax.jit
-    def op(bits):
-        b = bits.shape[0]
-        shifts = jnp.arange(8, dtype=jnp.uint8)          # little bitorder
-        unpacked = (bits[..., None] >> shifts) & jnp.uint8(1)
-        active = unpacked.reshape(b, gh, gwb * 8)[:, :, :gw].astype(jnp.int32)
-        active = jnp.pad(active, ((0, 0), (0, geom.padded_gh - gh),
-                                  (0, geom.padded_gw - gw)))
-        counts = _cluster_body(active, geom, 1)
+        counts = cluster_counts_traced(votes.astype(jnp.int32), geom,
+                                       vectors_needed)
         return counts, counts >= jnp.int32(max(1, clusters_needed))
 
     return op
 
 
 def packed_geometry(geom: GridGeometry) -> tuple[int, int, int]:
-    """(gwb, used, L): bytes per row, used bytes per frame, lane-padded
-    flat length for the packed-domain kernel."""
+    """(gwb, used, L): bytes per row, used bytes per frame, and the flat
+    length (used rounded up to 128) of the packed-domain layout."""
     gwb = (geom.gw + 7) // 8
     used = geom.gh * gwb
     lanes = ((used + 127) // 128) * 128
@@ -238,8 +119,6 @@ def _packed_masks(geom: GridGeometry):
     cyclic lane roll would wrap across frame/row boundaries, reproducing
     the zero-fill shift semantics exactly.
     """
-    import numpy as np
-
     gwb, used, lanes = packed_geometry(geom)
     center = np.zeros((lanes,), np.int32)
     not_first = np.zeros((lanes,), np.int32)
@@ -261,54 +140,41 @@ def _packed_masks(geom: GridGeometry):
     return center, not_first, not_last
 
 
-def packed_cluster_counts(a_i32, geom: GridGeometry, masks, roll,
-                          use_popcount: bool = True):
-    """Packed-domain cluster counts: int32 byte values [B, L] -> [B, 1].
+def _roll(v, shift: int):
+    """Cyclic shift of the lanes (axis -1) by a non-negative amount."""
+    return jnp.roll(v, shift, axis=-1)
+
+
+def packed_cluster_counts(a_i32, geom: GridGeometry, masks):
+    """Packed-domain cluster counts: int32 byte values [B, L] -> [B].
 
     Each lane holds one packed byte (8 cells along x, little bit order —
     the native mvt_scan_bits layout flattened row-major).  The
     active/4-neighbor/mask rule runs entirely in the packed domain:
     x-neighbors are in-byte shifts with cross-byte carries via lane
     rolls, y-neighbors are lane rolls by the row stride, and the cluster
-    count is a SWAR popcount.  ~9x fewer vector elements than the
-    unpacked kernel touching the same cells.
-
-    ``roll(v, shift)`` must cyclically shift lanes (axis -1) by a
-    non-negative amount; wrapped-in garbage is annihilated by the row
-    masks / center mask (see _packed_masks).
+    count is a popcount.  ~9x fewer elements than the unpacked op
+    touching the same cells.  The rolls are cyclic; wrapped-in garbage
+    is annihilated by the row masks / center mask (see _packed_masks).
     """
     center, not_first, not_last = masks
     lanes = a_i32.shape[-1]
     gwb = packed_geometry(geom)[0]
 
-    left = ((a_i32 << 1) & 0xFF) | (roll(a_i32, 1) >> 7)
-    right = (a_i32 >> 1) | ((roll(a_i32, lanes - 1) & 1) << 7)
-    up = roll(a_i32, gwb) & not_first
-    down = roll(a_i32, lanes - gwb) & not_last
+    left = ((a_i32 << 1) & 0xFF) | (_roll(a_i32, 1) >> 7)
+    right = (a_i32 >> 1) | ((_roll(a_i32, lanes - 1) & 1) << 7)
+    up = _roll(a_i32, gwb) & not_first
+    down = _roll(a_i32, lanes - gwb) & not_last
     cl = a_i32 & (left | right | up | down) & center
 
-    if use_popcount:
-        # hardware popcount of each byte value (<= 0xFF, non-negative;
-        # Mosaic lowers lax.population_count natively — the same switch
-        # that won +13.6% in the word kernel; +10.1% measured here).
-        # At the XLA-TPU level (the mesh archive step's lowering) the
-        # choice measured exactly neutral (9.3M frames/s both ways),
-        # so the default is right for every TPU path; only XLA-CPU
-        # prefers SWAR (see word_cluster_counts), which matters only
-        # for dryruns/tests where throughput is irrelevant.
-        v = jax.lax.population_count(cl)
-    else:
-        # SWAR popcount of each byte value (<= 0xFF) — kept for A/B
-        v = cl - ((cl >> 1) & 0x55)
-        v = (v & 0x33) + ((v >> 2) & 0x33)
-        v = (v + (v >> 4)) & 0x0F
-    return jnp.sum(v, axis=-1, keepdims=True)
+    return jnp.sum(jax.lax.population_count(cl), axis=-1)
 
 
 def word_geometry(geom: GridGeometry) -> tuple[int, int, int]:
     """(gww, used, L): int32 words per row, used words per frame, and
-    lane-padded flat length for the word-domain kernel (rows re-packed to
-    4-byte multiples so every word covers 32 consecutive x cells)."""
+    flat length (used rounded up to 128) of the word-domain layout (rows
+    re-packed to 4-byte multiples so every word covers 32 consecutive x
+    cells)."""
     gww = (geom.gw + 31) // 32
     used = geom.gh * gww
     lanes = ((used + 127) // 128) * 128
@@ -322,8 +188,6 @@ def repack_bits_words(bits: "np.ndarray", geom: GridGeometry):
     w of a row holds cells x = 32w..32w+31 in bit order — the byte layout
     generalized to 32-cell lanes.
     """
-    import numpy as np
-
     n, gh, gwb = bits.shape
     gww, used, _ = word_geometry(geom)
     rows = np.zeros((n, gh, gww * 4), np.uint8)
@@ -334,7 +198,6 @@ def repack_bits_words(bits: "np.ndarray", geom: GridGeometry):
 def _word_masks(geom: GridGeometry):
     """Per-word constants for the word-domain cluster math (the 32-cell
     generalization of _packed_masks)."""
-    import numpy as np
 
     gww, used, lanes = word_geometry(geom)
     center = np.zeros((lanes,), np.int32)
@@ -357,246 +220,44 @@ def _word_masks(geom: GridGeometry):
     return center, not_first, not_last
 
 
-def word_cluster_counts(w, geom: GridGeometry, masks, roll):
-    """Word-domain cluster counts: int32 packed words [B, L] -> [B, 1].
+def word_cluster_counts(w, geom: GridGeometry, masks):
+    """Word-domain cluster counts: int32 packed words [B, L] -> [B].
 
     Same rule as packed_cluster_counts at 32 cells per lane.  int32
-    right shifts are ARITHMETIC on TPU, so every >> is masked to its
-    logical value before use.
+    right shifts are arithmetic, so every >> is masked to its logical
+    value before use.
     """
     center, not_first, not_last = masks
     lanes = w.shape[-1]
     gww = word_geometry(geom)[0]
 
-    left = (w << 1) | ((roll(w, 1) >> 31) & 1)
-    right = ((w >> 1) & 0x7FFFFFFF) | ((roll(w, lanes - 1) & 1) << 31)
-    up = roll(w, gww) & not_first
-    down = roll(w, lanes - gww) & not_last
+    left = (w << 1) | ((_roll(w, 1) >> 31) & 1)
+    right = ((w >> 1) & 0x7FFFFFFF) | ((_roll(w, lanes - 1) & 1) << 31)
+    up = _roll(w, gww) & not_first
+    down = _roll(w, lanes - gww) & not_last
     cl = w & (left | right | up | down) & center
 
-    # SWAR popcount per 32-bit word (shifts masked: arithmetic >>).
-    # Deliberately NOT lax.population_count here: this body is the XLA
-    # "runs everywhere" build's math, and XLA-CPU lowers popcount 2.25x
-    # SLOWER than the SWAR chain (measured 1.2M vs 2.7M frames/s) — the
-    # popcount win is Mosaic/TPU-specific (word_cluster_counts_T,
-    # packed_cluster_counts).
-    v = cl - ((cl >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + ((v >> 4) & 0x0F0F0F0F)) & 0x0F0F0F0F
-    v = ((v * 0x01010101) >> 24) & 0xFF
-    return jnp.sum(v, axis=-1, keepdims=True)
+    return jnp.sum(jax.lax.population_count(cl), axis=-1)
 
 
+@functools.lru_cache(maxsize=64)
 def make_cluster_words_op_xla(geom: GridGeometry, clusters_needed: int):
-    """XLA build of the word-domain math: words int32 [B, L] ->
-    (counts i32 [B], motion bool [B])."""
+    """Word-domain op: words int32 [B, L] -> (counts i32 [B], motion bool
+    [B]).  Cached per (geometry, config) like make_cluster_op_xla."""
     masks_np = tuple(m[None, :] for m in _word_masks(geom))
 
     @jax.jit
     def op(words):
         masks = tuple(jnp.asarray(m) for m in masks_np)
-        counts = word_cluster_counts(
-            words, geom, masks, lambda v, s: jnp.roll(v, s, axis=-1))[:, 0]
+        counts = word_cluster_counts(words, geom, masks)
         return counts, counts >= jnp.int32(max(1, clusters_needed))
 
     return op
-
-
-def make_cluster_words_op_pallas(geom: GridGeometry, clusters_needed: int,
-                                 block_b: int = 512):
-    """Word-domain Pallas kernel: words int32 [B, L] (repack_bits_words
-    output zero-padded to L lanes) -> (counts i32 [B], motion bool [B]).
-    B must be a multiple of block_b."""
-    from jax.experimental.pallas import tpu as _pltpu
-
-    gww, used, lanes = word_geometry(geom)
-    masks_np = tuple(m[None, :] for m in _word_masks(geom))
-
-    def kernel(words_ref, center_ref, nf_ref, nl_ref, counts_ref):
-        masks = (center_ref[:], nf_ref[:], nl_ref[:])
-        counts_ref[:] = word_cluster_counts(
-            words_ref[:], geom, masks, lambda v, s: _pltpu.roll(v, s, 1))
-
-    mask_spec = pl.BlockSpec((1, lanes), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-
-    @jax.jit
-    def op(words):
-        b = words.shape[0]
-        assert b % block_b == 0, (b, block_b)
-        assert words.shape[1] == lanes, (words.shape, lanes)
-        counts = pl.pallas_call(
-            kernel,
-            grid=(b // block_b,),
-            in_specs=[pl.BlockSpec((block_b, lanes), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-                      mask_spec, mask_spec, mask_spec],
-            out_specs=pl.BlockSpec((block_b, 1), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((b, 1), jnp.int32),
-        )(words, *(jnp.asarray(m) for m in masks_np))
-        counts = counts[:, 0]
-        return counts, counts >= jnp.int32(max(1, clusters_needed))
-
-    return op
-
-
-def word_cluster_counts_T(wT, geom: GridGeometry, masks, roll0):
-    """TRANSPOSED word-domain cluster counts: int32 words [L, B] (words
-    on SUBLANES, frames on LANES) -> counts i32 [1, B].
-
-    Same rule as word_cluster_counts with every lane rotate replaced by
-    a sublane rotate (cheap vector shifts instead of cross-lane
-    shuffles) and the final popcount reduction as an f32 ones-matmul on
-    the MXU (per-word popcounts <= 32, frame totals <= gh*gw < 2^24 —
-    f32-exact).  Measured 1.47x the lane-major kernel on v5e
-    (benchmarks/word_bench.py).  ``roll0`` must rotate axis 0; masks
-    are [L, 1] columns; ``not_first``/``not_last`` may be None when
-    ``lanes - used >= gww`` (see make_cluster_words_op_pallas_T): the
-    up/down wrap then sources only the zero padding (inactive
-    neighbors) or lands outside the center mask — the edge masks are
-    provably redundant.
-
-    The per-word popcount is ``lax.population_count`` — Mosaic lowers
-    it natively, measured +13.6% over the 13-op SWAR chain (+ CSA
-    fold) it replaced at honest windows (benchmarks/word_bench.py
-    tpopc vs tslim: 461.3M vs 406.1M f/s, 98.1% vs 86.4% of the
-    stream-bound control; tcsapop at 449.6M showed the CSA fold stops
-    paying once popcount is one hardware op).  The bitcast to uint32
-    sidesteps signed semantics; counts are exact by definition.
-    """
-    center, not_first, not_last = masks
-    lanes = wT.shape[0]
-    gww = word_geometry(geom)[0]
-
-    left = (wT << 1) | ((roll0(wT, 1) >> 31) & 1)
-    right = ((wT >> 1) & 0x7FFFFFFF) | ((roll0(wT, lanes - 1) & 1) << 31)
-    up = roll0(wT, gww)
-    if not_first is not None:
-        up = up & not_first
-    down = roll0(wT, lanes - gww)
-    if not_last is not None:
-        down = down & not_last
-    cl = wT & (left | right | up | down) & center
-
-    pop = jax.lax.population_count(
-        jax.lax.bitcast_convert_type(cl, jnp.uint32)).astype(jnp.int32)
-    ones = jnp.ones((1, lanes), jnp.float32)
-    return jax.lax.dot_general(
-        ones, pop.astype(jnp.float32), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-
-
-def make_cluster_words_op_pallas_T(geom: GridGeometry, clusters_needed: int,
-                                   block_b: int = 1024,
-                                   interpret: bool = False):
-    """Transposed word-domain Pallas kernel: words int32 [L, B]
-    (repack_bits_words output transposed; frames on the lane axis) ->
-    (counts i32 [B], motion bool [B]).  B must be a multiple of
-    block_b.  The fastest 1080p cluster kernel measured on v5e — see
-    word_cluster_counts_T."""
-    from jax.experimental.pallas import tpu as _pltpu
-
-    gww, used, lanes = word_geometry(geom)
-    masks_full = tuple(m[:, None] for m in _word_masks(geom))
-    # lanes - used >= gww: the up/down wrap reads only zero padding (or
-    # lands outside the center mask), so the edge masks are redundant —
-    # two fewer VPU ANDs and two fewer VMEM streams per block
-    slim = lanes - used >= gww
-    masks_np = masks_full[:1] if slim else masks_full
-
-    def kernel(words_ref, *refs):
-        mask_refs, (counts_ref,) = refs[:-1], refs[-1:]
-        masks = (mask_refs[0][:],
-                 mask_refs[1][:] if not slim else None,
-                 mask_refs[2][:] if not slim else None)
-        counts_ref[:] = word_cluster_counts_T(
-            words_ref[:], geom, masks, lambda v, s: _pltpu.roll(v, s, 0))
-
-    mask_spec = pl.BlockSpec((lanes, 1), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-
-    @jax.jit
-    def op(wordsT):
-        b = wordsT.shape[1]
-        assert b % block_b == 0, (b, block_b)
-        assert wordsT.shape[0] == lanes, (wordsT.shape, lanes)
-        counts = pl.pallas_call(
-            kernel,
-            grid=(b // block_b,),
-            in_specs=[pl.BlockSpec((lanes, block_b), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM)] +
-                     [mask_spec] * len(masks_np),
-            out_specs=pl.BlockSpec((1, block_b), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((1, b), jnp.int32),
-            interpret=interpret,
-        )(wordsT, *(jnp.asarray(m) for m in masks_np))
-        counts = counts[0]
-        return counts, counts >= jnp.int32(max(1, clusters_needed))
-
-    return op
-
-
-def make_cluster_bits_packed_op_xla(geom: GridGeometry,
-                                    clusters_needed: int):
-    """XLA build of the packed-domain math (see packed_cluster_counts):
-    bits uint8 [B, L] -> (counts i32 [B], motion bool [B])."""
-    masks_np = _packed_masks(geom)
-
-    @jax.jit
-    def op(bits):
-        masks = tuple(jnp.asarray(m)[None, :] for m in masks_np)
-        counts = packed_cluster_counts(
-            bits.astype(jnp.int32), geom, masks,
-            lambda v, s: jnp.roll(v, s, axis=-1))[:, 0]
-        return counts, counts >= jnp.int32(max(1, clusters_needed))
-
-    return op
-
-
-@functools.lru_cache(maxsize=64)
-def _cached_bits_op(geom: GridGeometry, clusters_needed: int,
-                    backend: str = "xla", block_b: int = 512):
-    """Word-domain op cache (the detector's bits path).  'pallas' is the
-    TRANSPOSED kernel (words int32 [lanes, B] — frames on the lane
-    axis; fastest on real TPUs, see word_cluster_counts_T), 'pallas_l'
-    the lane-major [B, lanes] kernel, 'xla' the lane-major XLA build
-    that runs everywhere (incl. the CPU test backend).  The byte-domain
-    ops (packed_geometry layout) remain the transfer-optimal variant
-    used by the mesh-sharded archive step."""
-    if backend == "pallas":
-        return make_cluster_words_op_pallas_T(geom, clusters_needed,
-                                              block_b=block_b)
-    if backend == "pallas_l":
-        return make_cluster_words_op_pallas(geom, clusters_needed,
-                                            block_b=block_b)
-    return make_cluster_words_op_xla(geom, clusters_needed)
-
-
-@functools.lru_cache(maxsize=64)
-def _cached_op(geom: GridGeometry, vectors_needed: int, clusters_needed: int,
-               backend: str, interpret: bool):
-    if backend == "pallas":
-        return make_cluster_op_pallas(geom, vectors_needed, clusters_needed,
-                                      interpret=interpret)
-    return make_cluster_op_xla(geom, vectors_needed, clusters_needed)
 
 
 def cluster_counts(votes, geom: GridGeometry, *, vectors_needed: int,
-                   clusters_needed: int, backend: str = "xla",
-                   interpret: bool = False):
-    """Convenience entry: pad + dispatch to the chosen backend."""
+                   clusters_needed: int):
+    """Convenience entry: pad host vote grids [B, gh, gw] and run the
+    grid op -> (counts i32 [B], motion bool [B])."""
     votes = pad_votes(jnp.asarray(votes, dtype=jnp.uint8), geom)
-    if backend == "pallas":
-        b = votes.shape[0]
-        if b == 0:  # 0 % block_b below would divide by zero
-            return jnp.zeros((0,), jnp.int32)
-        block_b = min(64, b)
-        while b % block_b:
-            block_b -= 1
-        op = make_cluster_op_pallas(geom, vectors_needed, clusters_needed,
-                                    block_b=block_b, interpret=interpret)
-        return op(votes)
-    op = _cached_op(geom, vectors_needed, clusters_needed, "xla", False)
-    return op(votes)
+    return make_cluster_op_xla(geom, vectors_needed, clusters_needed)(votes)

@@ -1,30 +1,16 @@
-"""Fused motion-vector -> vote-grid -> cluster kernel.
+"""Fused motion-vector -> vote-grid -> cluster op (the ``mv_raw`` path).
 
 Replaces the reference's per-MV scalar vote loop (motion_scanner.cpp:242-268)
-with a TPU-native formulation: the scatter of MVs into the [gh, gw] grid is
-an **outer product of two one-hot matrices on the MXU**:
+with one device program per batch: each MV is thresholded and mapped to a
+grid cell, kept MVs are scatter-added into an int32 ``[GH_p, GW_p]`` vote
+grid per frame, and the shared cluster rule (ops/cluster.py) decides.
 
-    votes[y, x] = sum_k keep_k * 1(gy_k == y) * 1(gx_k == x)
-                = A @ Bt^T   with  A[y, k] = keep_k * 1(gy_k == y)  # [GH, M]
-                                   Bt[x, k] = 1(gx_k == x)          # [GW, M]
+    votes[b, y, x] = sum_k keep[b, k] * 1(gy[b, k] == y) * 1(gx[b, k] == x)
 
-so thresholding + scatter + cluster detection run fused on-device with one
-HBM read of the MV fields per frame.
-
-Layout discipline (measured on v5e, benchmarks/mv_bench.py): BOTH one-hots
-are built *inside* the kernel **lane-major over k** (broadcast from the
-[1, M] field rows) and contracted with an NT ``dot_general`` (contracting
-dims (1,), (1,)) — Mosaic takes the transposed rhs natively.  They are
-float32, not bfloat16 (the bf16 one-hot path lowers ~10-25x slower in
-Mosaic for these shapes).  The round-3 shootout caught the earlier design
-— which passed dst_x in a SECOND, sublane-major [M, 1] copy so the rhs
-one-hot could be built [M, GW] for a plain NN dot — costing 2.46x: a
-[M, 1] VMEM block is lane-padded 128x (1MB for 8KB of data at M=2048)
-and its HBM->VMEM DMA writes M strided 4-byte rows, ~1.5us per block —
-that DMA, not compute, was the old kernel's floor (ctrl == prod with it;
-audited same-session numbers at M=2048: prodsub 687k frames/s vs prod
-1.69M, with the votes-only path at 2.04M and the launch-structure
-stream control at 3.27M — see benchmarks/mv_bench.py).
+The scatter does O(M) integer work per frame.  It replaced a formulation
+that built the sum as a product of two one-hot matrices, which needs
+``(GH_p + GW_p) * M`` floats of temporaries per frame and ran slower than
+the scatter on the GPU at every measured shape (PERF.md, Findings).
 
 Exactness notes:
 
@@ -33,20 +19,22 @@ Exactness notes:
   integers is equivalent to ``mag_sq < ceil(T)``, so we bake a static
   integer bound and keep the compare in int32.
 * grid mapping: arithmetic right shift of dst (floor for negatives),
-  bounds 0 <= gx < gw, y_min <= gy < y_max — folded into the keep mask.
+  bounds 0 <= gx < gw, y_min <= gy < y_max — folded into the keep mask;
+  dropped MVs are sent to an out-of-range cell that the scatter drops.
 * vote saturation at 255 (motion_scanner.cpp:265-266) is skipped: counts
   only feed ``>= vectors_needed`` with vectors_needed <= 255, and
   count > 255 implies both saturated and unsaturated values pass — the
   motion decision is identical.
-* one-hots are exact 0/1 in float32 and accumulate in float32
-  (exact integers below 2^24), so counts are exact.
+* integer adds are exact and order-independent, so the scatter's
+  nondeterministic update order cannot change a count.
 * the motion compare uses max(1, clusters_needed): the reference's early
   exit (motion_scanner.cpp:288-289) requires at least one cluster even for
   CLUSTERS_NEEDED <= 0, and MV-less frames always return false (:219-221).
 
-This path exists for on-device threshold sweeps and MV-resident analysis;
-the default pipeline scatters votes host-side during decode (cheaper H2D)
-and runs only the cluster kernel on device.
+This path exists for hosts where the MV scatter CPU is the constraint and
+for on-device threshold sweeps (ops/sweep.py); the default pipeline
+thresholds and packs votes host-side during decode (cheaper H2D) and runs
+only the cluster op on device.
 """
 
 from __future__ import annotations
@@ -55,11 +43,10 @@ import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from ..core.types import GridGeometry
-from .cluster import _cluster_body, _cluster_map
+from .cluster import cluster_counts_traced
 
 
 def threshold_bound(threshold_sq: float) -> int:
@@ -68,123 +55,47 @@ def threshold_bound(threshold_sq: float) -> int:
     return int(math.ceil(threshold_sq))
 
 
-def _mv_frame_votes(dst_x, dst_y, src_x, src_y, count,
-                    geom: GridGeometry, bound: int, block_shift: int,
-                    idx_offset: int = 0, fold_keep: bool = False):
-    """Fused per-frame vote accumulation.
+def mv_votes(dst_x, dst_y, src_x, src_y, counts, geom: GridGeometry,
+             bound, block_shift: int):
+    """Vote grids from raw MV fields.
 
-    dst_x/dst_y/src_x/src_y are [1, M] int32 (lane-major), count is a
-    scalar int32.  ``idx_offset`` shifts the validity iota when the caller
-    feeds an M-chunk of a larger MV list.  Returns f32 votes [GH_p, GW_p].
-
-    Both one-hots are built lane-major over k and contracted with an NT
-    dot_general — see the module docstring for why no sublane-major
-    operand may be introduced here (4.0x, measured).
-
-    ``fold_keep`` folds the keep mask into the row index ([1, M] select
-    to -1, which no grid row matches) instead of AND-ing it across the
-    [GH_p, M] one-hot — one fewer full-plane VPU op, bit-identical by
-    construction.  Benchable as mv_bench's ``prodfold``.
+    dst_x/dst_y/src_x/src_y are int32 [B, M], counts int32 [B] (entries
+    at index >= count are padding); ``bound`` is the integer magnitude
+    bound (threshold_bound), static or traced.  Returns int32 votes
+    [B, GH_p, GW_p].
     """
-    m = dst_x.shape[-1]
+    b, m = dst_x.shape
     gh_p, gw_p = geom.padded_gh, geom.padded_gw
-
     dx = dst_x - src_x
     dy = dst_y - src_y
     mag = dx * dx + dy * dy
-    gx = jax.lax.shift_right_arithmetic(dst_x, block_shift)      # [1, M]
-    gy = jax.lax.shift_right_arithmetic(dst_y, block_shift)      # [1, M]
-
-    idx = jax.lax.broadcasted_iota(jnp.int32, (1, m), 1) + idx_offset
-    keep = ((idx < count)
-            & (mag >= jnp.int32(bound))
+    gx = jax.lax.shift_right_arithmetic(dst_x, block_shift)
+    gy = jax.lax.shift_right_arithmetic(dst_y, block_shift)
+    idx = jax.lax.broadcasted_iota(jnp.int32, (b, m), 1)
+    keep = ((idx < counts[:, None])
+            & (mag >= bound)
             & (gx >= 0) & (gx < geom.gw)
-            & (gy >= geom.y_min) & (gy < geom.y_max))            # [1, M]
-
-    rows_y = jax.lax.broadcasted_iota(jnp.int32, (gh_p, m), 0)
-    rows_x = jax.lax.broadcasted_iota(jnp.int32, (gw_p, m), 0)
-    if fold_keep:
-        gym = jnp.where(keep, gy, jnp.int32(-1))                 # [1, M]
-        one_y = (rows_y == gym).astype(jnp.float32)              # [GH_p, M]
-    else:
-        one_y = ((rows_y == gy) & keep).astype(jnp.float32)      # [GH_p, M]
-    one_xt = (rows_x == gx).astype(jnp.float32)                  # [GW_p, M]
-
-    return jax.lax.dot_general(
-        one_y, one_xt,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                                            # [GH_p, GW_p]
-
-
-def chunked_frame_votes(dst_x_ref, dst_y_ref, src_x_ref, src_y_ref, fi,
-                        count, geom: GridGeometry, bound: int,
-                        block_shift: int, *, m: int, m_chunk: int,
-                        dynamic_chunks: bool, fold_keep: bool = False,
-                        bound_count=None):
-    """In-kernel per-frame votes with M-chunked accumulation.
-
-    fori_loop (not a static unroll): one chunk's one-hot operands live at
-    a time, or the scheduler keeps them all resident and blows VMEM at
-    4 chunks x 4K geometry.  Chunks are sliced from the REFS with pl.ds —
-    dynamic_slice on loaded values has no Mosaic lowering (caught on
-    hardware; interpret mode accepts it).
-
-    ``dynamic_chunks`` bounds the loop at ``ceil(count / m_chunk)``:
-    chunks whose offset is past the frame's MV count contribute zero
-    (``idx < count`` fails on every lane), so skipping them is exact —
-    and it makes the kernel's cost track the frame's actual MV count
-    instead of the padded capacity M.  Shared by the product op
-    (make_mv_cluster_op_pallas) and the bench harness
-    (benchmarks/mv_bench.py) so both time the same body.
-    """
-    if m <= m_chunk:
-        return _mv_frame_votes(
-            dst_x_ref[fi], dst_y_ref[fi], src_x_ref[fi],
-            src_y_ref[fi], count, geom, bound, block_shift,
-            fold_keep=fold_keep)
-
-    def chunk_body(ci, votes):
-        off = pl.multiple_of(ci * m_chunk, m_chunk)
-        sl = pl.ds(off, m_chunk)
-        return votes + _mv_frame_votes(
-            dst_x_ref[fi, :, sl], dst_y_ref[fi, :, sl],
-            src_x_ref[fi, :, sl], src_y_ref[fi, :, sl], count,
-            geom, bound, block_shift, idx_offset=off,
-            fold_keep=fold_keep)
-
-    n_chunks = m // m_chunk
-    if dynamic_chunks:
-        # ``bound_count`` (must be >= count) lets a multi-frame step
-        # share ONE dynamic bound across its frames (the max of their
-        # counts) instead of 16 per-frame SMEM-dependent bounds — still
-        # exact (chunks past the frame's own count contribute zero).
-        bc = count if bound_count is None else bound_count
-        n_chunks = jnp.minimum(
-            jnp.int32(n_chunks),
-            jax.lax.div(bc + jnp.int32(m_chunk - 1),
-                        jnp.int32(m_chunk)))
-    return jax.lax.fori_loop(
-        0, n_chunks, chunk_body,
-        jnp.zeros((geom.padded_gh, geom.padded_gw), jnp.float32))
+            & (gy >= geom.y_min) & (gy < geom.y_max))
+    cell = jnp.where(keep, gy * gw_p + gx, gh_p * gw_p)   # OOB: dropped
+    rows = jax.lax.broadcasted_iota(jnp.int32, (b, m), 0)
+    votes = jnp.zeros((b, gh_p * gw_p), jnp.int32).at[rows, cell].add(
+        1, mode="drop")
+    return votes.reshape(b, gh_p, gw_p)
 
 
 def make_mv_cluster_op_xla(geom: GridGeometry, *, threshold_sq: float,
                            block_shift: int, vectors_needed: int,
                            clusters_needed: int):
-    """jnp/vmap implementation: MV fields [B, M] i32 + counts [B] i32
-    -> (cluster counts i32 [B], motion bool [B])."""
+    """MV fields [B, M] i32 x4 + counts [B] i32 -> (cluster counts i32
+    [B], motion bool [B]).  M is not baked in: the jitted program
+    retraces per input shape."""
     bound = threshold_bound(threshold_sq)
-
-    def frame(dst_x, dst_y, src_x, src_y, count):
-        votes = _mv_frame_votes(dst_x[None, :], dst_y[None, :],
-                                src_x[None, :], src_y[None, :], count,
-                                geom, bound, block_shift)
-        return _cluster_body(votes.astype(jnp.int32), geom, vectors_needed)
 
     @jax.jit
     def op(dst_x, dst_y, src_x, src_y, counts):
-        n = jax.vmap(frame)(dst_x, dst_y, src_x, src_y, counts)
+        votes = mv_votes(dst_x, dst_y, src_x, src_y, counts, geom, bound,
+                         block_shift)
+        n = cluster_counts_traced(votes, geom, vectors_needed)
         # count == 0 <=> the frame carried no MV side data (FFmpeg never
         # attaches an empty list): the reference decides such frames
         # False before phase 2 runs (motion_scanner.cpp:219-221), which
@@ -196,354 +107,12 @@ def make_mv_cluster_op_xla(geom: GridGeometry, *, threshold_sq: float,
     return op
 
 
-def mv_frames_per_step(m: int, requested: int = 16) -> int:
-    """VMEM-aware frames-per-step for the fused-MV kernel.
-
-    Each frame streams four [1, m] int32 blocks whose single-sublane
-    tiles pad to 8 sublanes (m*128 bytes/frame), double-buffered
-    against the kernel's 64MB vmem limit with ~16MB reserved for the
-    one-hot/vote working set (bounded by m_chunk via the fori_loop).
-    M=2048 -> F=16 (the audited knee); M=16384 -> F=12 (F=16's stream
-    blocks alone would equal the whole 64MB limit)."""
-    per_frame = 4 * 4 * 8 * m            # 4 streams, i32, 8x sublane pad
-    budget = (64 - 16) * 1024 * 1024
-    return max(1, min(requested, budget // (2 * per_frame)))
-
-
-def mv_frames_per_step_ragged(m_chunk: int, geom: GridGeometry,
-                              requested: int = 16) -> int:
-    """VMEM-aware frames-per-step for the RAGGED (chunk-in-grid) kernel.
-
-    Stream blocks are m_chunk-sized (not capacity-sized) there, but each
-    frame additionally holds a [GH_p, GW_p] f32 vote accumulator in
-    scratch for the whole chunk sweep."""
-    per_frame = (2 * 4 * 4 * 8 * m_chunk            # double-buffered blocks
-                 + geom.padded_gh * geom.padded_gw * 4)  # vote scratch
-    budget = (64 - 16) * 1024 * 1024
-    return max(1, min(requested, budget // per_frame))
-
-
-def make_mv_cluster_op_pallas(geom: GridGeometry, *, threshold_sq: float,
-                              block_shift: int, vectors_needed: int,
-                              clusters_needed: int, interpret: bool = False,
-                              m_chunk: int = 2048, frames_per_step: int = 16,
-                              dynamic_chunks: bool = True,
-                              fold_keep: bool = True,
-                              ragged_chunks: bool = True):
-    """Pallas implementation: ``frames_per_step`` frames per grid step,
-    everything in VMEM.
-
-    The MV count array rides as a scalar-prefetch arg (SMEM) so the keep
-    mask is computed without an extra VMEM stream.  Multi-frame steps
-    amortize the per-step pipeline cost (audited sweep at M=2048,
-    benchmarks/mv_bench.py: F=1/4/8/16/32 = 1.69/3.15/3.63/4.00M
-    frames/s with F=32 flat) — an earlier "F is neutral" reading was an
-    artifact of the retired sublane-stream DMA floor (see module
-    docstring); the default request is 16 (the knee; 512KB of double-
-    buffered stream blocks at M=2048), clamped per call by
-    ``mv_frames_per_step`` once the padded M is known.  MV capacities
-    larger than ``m_chunk`` are accumulated via a fori_loop so the
-    one-hot operands fit VMEM at any geometry (4K + M=16384 in one shot
-    exceeds the ~16MB limit; a static unroll keeps every chunk resident
-    and fails too).  2048 is validated across 1080p/4K up to M=16384;
-    oddly, exactly 4 chunks of 4096 at 4K trips a Mosaic scheduling
-    limit — keep the chunk small rather than clever.
-
-    ``dynamic_chunks``: the kernel's cost is otherwise proportional to
-    the MV *capacity* M, not the frame's actual MV count — the one-hot
-    build + vote matmul contract over every chunk even when all its
-    lanes fail ``idx < count``.  With the per-frame count already in
-    SMEM, bounding the fori_loop at ``ceil(count / m_chunk)`` skips
-    all-padding chunks EXACTLY (their contribution is provably zero) and
-    makes sparse frames cost only the chunks they fill.  Real 1080p
-    frames carry hundreds-to-thousands of MVs against the default
-    M=8192 capacity (core/config.py MVT_MV_CAPACITY), so typical frames
-    run 1 of 4 chunks.  Only reachable at m > m_chunk.  Measured
-    granularity trade-off (don't re-derive): m_chunk=1024 is +11% at
-    sparse counts but -25% at full capacity (8 loop trips); 512 loses
-    even sparse — 2048 stays the default (PERFORMANCE.md, round 3).
-
-    ``ragged_chunks`` (round 5 DEFAULT, only reachable at m > m_chunk):
-    ``dynamic_chunks`` makes the COMPUTE count-sized but the DMA stays
-    capacity-sized — every [F, 1, M] stream block ships whole, which is
-    why the sparse M=8192 regime measured 32% of its stream control
-    while provably below its compute floor (PERFORMANCE.md round 4).
-    The ragged layout moves the chunk loop INTO THE GRID: grid
-    (steps, chunks) with [F, 1, m_chunk] blocks whose index map clamps
-    the chunk index at the step's max needed chunk (a second
-    scalar-prefetch array) — Mosaic only re-DMAs a block when its index
-    changes between consecutive grid steps, so all-padding chunks cost
-    neither DMA nor compute.  The shipped kernel is the round-5 HYBRID
-    (see make_ragged_kernel): step-level predicates over a static
-    F-frame body, a dynamic chunk grid, and a no-scratch fast path for
-    single-chunk steps.  Measured at M=8192 F=16, honest windows,
-    checksum-audited (benchmarks/mv_bench.py): sparse realistic counts
-    **4.126M frames/s vs 1.753M** for the fori_loop build (2.35x; 74.5%
-    of the same-session stream control, ~97% of the M=2048 floor), and
-    full-capacity worst case **967.9k vs 630.6k (+53%)** — it wins both
-    regimes, hence the default.  Bit-identical by construction (skipped
-    chunks are provably zero — the same argument that makes
-    dynamic_chunks exact).
-    """
-    bound = threshold_bound(threshold_sq)
-    F_req = max(1, frames_per_step)
-
-    # fold_keep=True is the round-4 default: the keep mask rides in the
-    # row index (select-to--1 on [1, M]) instead of an AND across the
-    # [GH_p, M] one-hot — bit-identical (tests/test_kernels.py), and
-    # measured +3.3% on v5e (prod 4.128M vs fold 4.263M frames/s, same
-    # session, honest windows — benchmarks/mv_bench.py round 4; the
-    # retired AND build stays benchable as ``prodandmask``).
-    def frame_votes(count, fi, dst_x_ref, dst_y_ref, src_x_ref,
-                    src_y_ref, m):
-        return chunked_frame_votes(
-            dst_x_ref, dst_y_ref, src_x_ref, src_y_ref, fi, count,
-            geom, bound, block_shift, m=m, m_chunk=m_chunk,
-            dynamic_chunks=dynamic_chunks, fold_keep=fold_keep)
-
-    def make_kernel(F):
-        def kernel(count_ref, dst_x_ref, dst_y_ref, src_x_ref, src_y_ref,
-                   counts_ref):
-            j = pl.program_id(0)
-            m = dst_x_ref.shape[-1]
-            for fi in range(F):
-                votes = frame_votes(
-                    count_ref[j * F + fi], fi,
-                    dst_x_ref, dst_y_ref, src_x_ref, src_y_ref, m)
-                cluster = _cluster_map(votes.astype(jnp.int32), geom,
-                                       vectors_needed).astype(jnp.int32)
-                # keep every reduction step >=2D: [GH,GW]->[1,GW]->[1,1]
-                col_sums = jnp.sum(cluster, axis=0, keepdims=True)
-                counts_ref[fi] = jnp.sum(col_sums, axis=1, keepdims=True)
-        return kernel
-
-    gh_p, gw_p = geom.padded_gh, geom.padded_gw
-
-    def make_ragged_kernel(F, nc_total, own_finalize):
-        # Ragged (chunk-in-grid) HYBRID body — the round-5 measured
-        # winner (benchmarks/mv_bench.py ``prodraghyb``: 4.126M frames/s
-        # at sparse M=8192 vs prod 1.753M, 74.5% of the same-session
-        # stream control, checksum-audited).  Grid is (steps, chunks);
-        # the MV stream BlockSpecs clamp the chunk block index at the
-        # step's max needed chunk (scalar-prefetch nc array), so
-        # all-padding chunks are never DMA'd — Mosaic only fetches a
-        # block when its index changes between consecutive grid steps.
-        #
-        # Structure (each piece measured separately, same sessions):
-        #  * ONE step-level predicate over a STATIC F-frame body instead
-        #    of F per-frame ``pl.when`` regions (``prodragstep``, +40%:
-        #    per-frame dynamic control-flow regions, not DMA, were the
-        #    sparse cost — the pure DMA cut ``prodrag`` measured NEUTRAL,
-        #    1.777M vs 1.753M).  Exact: chunks at/past a frame's count
-        #    contribute zero (``idx < count`` fails on every lane).
-        #  * a straight-line NO-SCRATCH fast path for single-chunk steps
-        #    (votes -> cluster -> out in registers, exactly the
-        #    m <= m_chunk body) — the hot path at real 1080p densities,
-        #    skipping the ~4MB/step scratch zero + read-modify-write +
-        #    finalize round-trip (2.73M -> 4.13M).
-        #  * multi-chunk steps take the scratch path, finalized at the
-        #    step's OWN last chunk when the caller runs a dynamic chunk
-        #    grid (``own_finalize=True``; under a static grid the fixed
-        #    last chunk is used — interpret mode, where a traced grid
-        #    dim is unsupported).
-        def kernel(count_ref, nc_ref, dst_x_ref, dst_y_ref, src_x_ref,
-                   src_y_ref, counts_ref, votes_vmem):
-            j = pl.program_id(0)
-            ci = pl.program_id(1)
-            nc_step = nc_ref[j]
-
-            def frame_votes(fi, idx_offset):
-                return _mv_frame_votes(
-                    dst_x_ref[fi], dst_y_ref[fi], src_x_ref[fi],
-                    src_y_ref[fi], count_ref[j * F + fi], geom, bound,
-                    block_shift, idx_offset=idx_offset,
-                    fold_keep=fold_keep)
-
-            def reduce_out(fi, votes):
-                cluster = _cluster_map(votes.astype(jnp.int32), geom,
-                                       vectors_needed).astype(jnp.int32)
-                col_sums = jnp.sum(cluster, axis=0, keepdims=True)
-                counts_ref[fi] = jnp.sum(col_sums, axis=1, keepdims=True)
-
-            # Fast path: every count in the step fits one chunk — votes
-            # -> cluster -> out entirely in registers, scratch untouched
-            # (later chunk iterations of this step run nothing; the out
-            # block only flushes when its index changes, so the write
-            # persists).
-            @pl.when((nc_step == 1) & (ci == 0))
-            def _fast():
-                for fi in range(F):
-                    reduce_out(fi, frame_votes(fi, 0))
-
-            @pl.when((nc_step > 1) & (ci == 0))
-            def _zero():
-                votes_vmem[...] = jnp.zeros((F, gh_p, gw_p), jnp.float32)
-
-            @pl.when((nc_step > 1) & (ci < nc_step))
-            def _acc():
-                # static body: frames needing fewer chunks than the
-                # step's max accumulate exact zeros (idx < count fails
-                # on every lane of the resident block)
-                for fi in range(F):
-                    votes_vmem[fi] = votes_vmem[fi] + frame_votes(
-                        fi, ci * m_chunk)
-
-            fin_at = (nc_step - 1) if own_finalize else (nc_total - 1)
-
-            @pl.when((nc_step > 1) & (ci == fin_at))
-            def _finalize():
-                for fi in range(F):
-                    reduce_out(fi, votes_vmem[fi])
-        return kernel
-
-    @jax.jit
-    def op(dst_x, dst_y, src_x, src_y, counts):
-        b, m = dst_x.shape
-        if m > m_chunk and m % m_chunk:
-            # pad to a whole number of chunks; padded entries have
-            # idx >= m >= count, so the validity mask already drops them
-            pad = m_chunk - m % m_chunk
-            padder = lambda a: jnp.pad(a, ((0, 0), (0, pad)))
-            dst_x, dst_y, src_x, src_y = (padder(a) for a in
-                                          (dst_x, dst_y, src_x, src_y))
-            m += pad
-        ragged = ragged_chunks and m > m_chunk
-        F = (mv_frames_per_step_ragged(m_chunk, geom, F_req) if ragged
-             else mv_frames_per_step(m, F_req))
-        nb = -(-b // F)
-        if nb * F != b:
-            # pad to whole steps: padded frames have count 0 -> idx >=
-            # count fails for every row, votes are all-zero, motion False
-            fpad = nb * F - b
-            dst_x, dst_y, src_x, src_y = (
-                jnp.pad(a, ((0, fpad), (0, 0)))
-                for a in (dst_x, dst_y, src_x, src_y))
-            counts = jnp.pad(counts, (0, fpad))
-        bp = nb * F
-        # Blocks must keep their last two dims tile-aligned or array-equal;
-        # [B, 1, M] with block (F, 1, M) satisfies that for F frames/step.
-        lane = lambda a: a.reshape(bp, 1, m)
-        vmem_params = pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024)
-        if ragged:
-            nc_total = m // m_chunk
-            # per-step chunk bound: ceil(max count in the step / m_chunk),
-            # clamped to [1, nc_total] so every step fetches at least one
-            # valid block and the finalize step always runs
-            cgrp = jnp.asarray(counts, jnp.int32).reshape(nb, F)
-            nc_steps = jnp.clip(
-                (jnp.max(cgrp, axis=1) + jnp.int32(m_chunk - 1))
-                // jnp.int32(m_chunk), 1, nc_total).astype(jnp.int32)
-            mv_spec = pl.BlockSpec(
-                (F, 1, m_chunk),
-                lambda j, ci, csm, ncsm: (j, 0,
-                                          jnp.minimum(ci, ncsm[j] - 1)),
-                memory_space=pltpu.VMEM)
-            # DYNAMIC chunk grid (Mosaic): bound the chunk sweep at the
-            # batch's max needed chunk so a uniformly sparse batch runs
-            # zero empty grid iterations (+12% measured, ``prodragdyn``
-            # vs ``prodragstep``).  Interpret mode cannot take a traced
-            # grid dim — it falls back to the static bound, with the
-            # finalize pinned at the static last chunk (bit-identical;
-            # the dynamic-grid leg is covered on hardware by
-            # tests/test_tpu_smoke.py).
-            grid_nc = nc_total if interpret else jnp.max(nc_steps)
-            n = pl.pallas_call(
-                make_ragged_kernel(F, nc_total,
-                                   own_finalize=not interpret),
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=2,
-                    grid=(nb, grid_nc),
-                    in_specs=[mv_spec] * 4,
-                    out_specs=pl.BlockSpec(
-                        (F, 1, 1), lambda j, ci, *_: (j, 0, 0),
-                        memory_space=pltpu.VMEM),
-                    scratch_shapes=[
-                        pltpu.VMEM((F, gh_p, gw_p), jnp.float32)],
-                ),
-                out_shape=jax.ShapeDtypeStruct((bp, 1, 1), jnp.int32),
-                compiler_params=vmem_params,
-                interpret=interpret,
-            )(counts, nc_steps, lane(dst_x), lane(dst_y), lane(src_x),
-              lane(src_y))
-        else:
-            mv_spec = pl.BlockSpec((F, 1, m), lambda j, *_: (j, 0, 0),
-                                   memory_space=pltpu.VMEM)
-            n = pl.pallas_call(
-                make_kernel(F),
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=1,
-                    grid=(nb,),
-                    in_specs=[mv_spec] * 4,
-                    out_specs=pl.BlockSpec(
-                        (F, 1, 1), lambda j, *_: (j, 0, 0),
-                        memory_space=pltpu.VMEM),
-                ),
-                out_shape=jax.ShapeDtypeStruct((bp, 1, 1), jnp.int32),
-                compiler_params=vmem_params,
-                interpret=interpret,
-            )(counts, lane(dst_x), lane(dst_y), lane(src_x), lane(src_y))
-        n = n[:b, 0, 0]
-        # counts[:b] is pre-pad; count == 0 <=> no MV side data -> the
-        # reference's `!sd` early False (motion_scanner.cpp:219-221),
-        # unreachable from the votes alone at vectors_needed == 0
-        return n, ((n >= jnp.int32(max(1, clusters_needed)))
-                   & (counts[:b] > 0))
-
-    # the requested F; the per-call effective value is the VMEM-aware
-    # clamp mv_frames_per_step(padded_m, F_req)
-    op.frames_per_step = F_req
-    return op
-
-
-def host_expected_clusters(dst_x, dst_y, src_x, src_y, counts,
-                           geom: GridGeometry, *, threshold_sq: float,
-                           block_shift: int, vectors_needed: int):
-    """Vectorized NumPy restatement of the kernel's keep-mask + vote
-    scatter + cluster count, for bench audits.
-
-    Returns (kept_counts int64 [B], cluster_counts int64 [B]).  One
-    definition shared by bench.py's fused-MV secondary and
-    benchmarks/mv_bench.py so the two audits cannot drift from each
-    other (mv_bench additionally cross-checks this restatement against
-    oracle.check_frame per frame).
-    """
-    import numpy as np
-
-    from ..core.oracle import count_clusters_batch
-
-    dst_x = np.asarray(dst_x)
-    dst_y = np.asarray(dst_y)
-    b, m = dst_x.shape
-    bound = threshold_bound(threshold_sq)
-    dx = dst_x.astype(np.int64) - np.asarray(src_x)
-    dy = dst_y.astype(np.int64) - np.asarray(src_y)
-    mag = dx * dx + dy * dy
-    gx = dst_x >> block_shift
-    gy = dst_y >> block_shift
-    idx_ok = np.arange(m)[None, :] < np.asarray(counts)[:, None]
-    keep = (idx_ok & (mag >= bound) & (gx >= 0) & (gx < geom.gw)
-            & (gy >= geom.y_min) & (gy < geom.y_max))
-    kept_counts = keep.sum(axis=1).astype(np.int64)
-    flat = (np.arange(b)[:, None] * (geom.gh * geom.gw)
-            + gy * geom.gw + gx)
-    votes = np.bincount(flat[keep].ravel(),
-                        minlength=b * geom.gh * geom.gw
-                        ).reshape(b, geom.gh, geom.gw)
-    votes = np.minimum(votes, 255)  # saturation is decision-preserving
-    clusters = count_clusters_batch(
-        votes, vectors_needed=vectors_needed,
-        y_min=geom.y_min, y_max=geom.y_max)
-    return kept_counts, clusters.astype(np.int64)
-
-
 def pad_mvs(mv_list, m: int):
     """Host helper: list of [n_i, 4] int arrays -> ([B, M] x4 int32, counts).
 
     Rows are (dst_x, dst_y, src_x, src_y).  Frames with more than M MVs are
     truncated with a flag so callers can re-run them through the oracle.
     """
-    import numpy as np
 
     b = len(mv_list)
     dst_x = np.zeros((b, m), np.int32)

@@ -1,4 +1,4 @@
-"""Pixel-domain block SAD kernels — the MV-less fallback path.
+"""Pixel-domain block SAD op — the MV-less fallback path.
 
 For intra-only / MV-less streams (BASELINE.json config 2) the codec offers
 no motion vectors, so motion is measured from decoded luma directly: per
@@ -13,28 +13,18 @@ input — check_frame returns false without side data,
 motion_scanner.cpp:219-221); this is a capability extension the north
 star requires.
 
-Two implementations:
-* ``xla``   — reduce_window block sums; XLA fuses diff+reduce.
-* ``pallas``— multi-frame-block kernel: |cur-prev| in int32, then both
-  block reductions on the MXU as indicator matmuls — rows as bf16
-  (R @ D: |diff| <= 255 is bf16-exact, f32 accumulation), columns as
-  f32 (row sums <= block_area*255 are f32-exact) — with the cluster
-  decision fused in-kernel.  Several frames per grid step (in-block
-  consecutive diffs) amortize the per-step pipeline cost, and the
-  previous frame is carried across the sequential grid in VMEM scratch
-  (one HBM read per frame).  Variant shootout on v5e
-  (benchmarks/sad_bench.py, audited): this formulation wins over VPU
-  sublane row-sums, bf16 hi/lo column splits, bf16 scratch, and
-  strip-blocked grids.
+One XLA build: the uint8 -> int32 cast, the absolute difference and the
+``reduce_window`` block sums fuse into one pass over the luma.  Integer
+sums are exact, so no matmul precision is involved.
 """
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core.types import GridGeometry
 from .cluster import cluster_counts_traced
@@ -44,16 +34,9 @@ def sad_threshold_sum(sad_threshold: float, block_size: int) -> int:
     """Active iff block SAD sum >= ceil(threshold * block_area).
 
     ``sad_threshold`` is a mean-absolute-difference per pixel; comparing
-    against the integer SAD sum keeps the kernel in int32.
+    against the integer SAD sum keeps the op in int32.
     """
-    import math
     return int(math.ceil(sad_threshold * block_size * block_size))
-
-
-def _cluster_from_grid(grid_i32, geom: GridGeometry, bound: int):
-    """Cluster count over an activity grid — the shared cluster rule
-    (ops/cluster.cluster_counts_traced) with the SAD bound as threshold."""
-    return cluster_counts_traced(grid_i32, geom, jnp.int32(bound))
 
 
 def make_sad_op_xla(geom: GridGeometry, *, sad_threshold: float,
@@ -63,7 +46,7 @@ def make_sad_op_xla(geom: GridGeometry, *, sad_threshold: float,
 
     H_p/W_p must be multiples of block_size (zero-pad; pad pixels diff to
     zero and cannot activate a block).  ``device`` pins the dispatch to
-    one chip (multi-chip batch mode assigns each stream its own).
+    one card (multi-card batch mode assigns each stream its own).
     """
     bound = sad_threshold_sum(sad_threshold, block_size)
     eff = max(1, clusters_needed)
@@ -77,7 +60,7 @@ def make_sad_op_xla(geom: GridGeometry, *, sad_threshold: float,
             window_dimensions=(1, block_size, block_size),
             window_strides=(1, block_size, block_size),
             padding="VALID")                               # [B, gh_p, gw_p]
-        counts = _cluster_from_grid(sad, geom, bound)
+        counts = cluster_counts_traced(sad, geom, bound)
         return counts, counts >= jnp.int32(eff)
 
     if device is None:
@@ -86,414 +69,6 @@ def make_sad_op_xla(geom: GridGeometry, *, sad_threshold: float,
     def op(luma):
         return op_jit(jax.device_put(luma, device))
 
-    return op
-
-
-def sad_step_counts(diff_i32, geom: GridGeometry, block_size: int,
-                    bound: int, *, col_mode: str = "hilo"):
-    """Cluster count for one |cur-prev| frame diff — the SAD kernel's
-    per-frame math (shared by the product op and the
-    benchmarks/sad_bench.py shootout so the bench measures the real
-    production math).  ``diff_i32`` may be int32 (the product kernel —
-    bf16 diffs measured ~14% slower, see make_sad_kernel) or bfloat16
-    (exact for the matmul col_modes by the <=255 bound); vpurow
-    requires int32 (its sublane partials up to 4080 are not bf16-exact).
-
-    Row blocks as a bf16 indicator matmul on the MXU: R[g, r] = 1 if
-    row r belongs to block-row g; |diff| <= 255 is bf16-exact and the
-    f32 accumulation keeps row sums (<= block_size*255) exact.
-    Measured faster than VPU sublane reshape-sums.  Column blocks as an
-    f32 matmul (lane-dim reshapes are not legal): S[c, g] = 1 if
-    column c belongs to block-col g.
-
-    The column matmul CANNOT run at default f32 precision: Mosaic
-    lowers a default-precision f32 matmul as a SINGLE bf16xbf16 MXU
-    pass, so the f32 row sums (<= block_size*255, up to 12 significant
-    bits) would be rounded to bf16 on hardware — measured on a v5e via
-    a 1153.0-operand probe (1153 rounds to 1152; interpret mode
-    computes true f32 and cannot catch it — only
-    test_tpu_smoke.py::test_sad_kernel_near_threshold_exact_on_device
-    does).  Two exact modes, selectable via ``col_mode``:
-
-    * ``hilo`` (default): split row sums into 256*hi + lo with hi <= 15
-      and lo <= 255 — both bf16-exact — and finish with ONE stacked
-      default-precision bf16 matmul [2*gh_p, W_p] @ S (2x the lossy
-      matmul's FLOPs; the split itself is three exact VPU f32 ops since
-      /256 is a power of two and the values are integers).  Measured
-      212.0k 1080p frames/s vs the pre-fix lossy kernel's 224.5k the
-      same session (-5.6%).
-    * ``highest``: precision=HIGHEST multi-pass decomposition — the
-      obviously-correct cross-check, measured 183.0k (-18%) in the same
-      session; hilo ships.
-    * ``dcfirst``: column reduction FIRST (D @ C: M=H_p, K=W_p,
-      N=gw_p — every dim a whole number of 128-tiles, zero padding
-      waste), then the row reduction on the 16x-smaller [H_p, gw_p]
-      partials with the hi/lo split (partials <= block_size*255 are not
-      bf16-exact).  The row-first ordering pads its big matmul's
-      M=gh_p to 128 (44% wasted MXU slots at 1080p); dcfirst moves the
-      full-resolution pass to the waste-free orientation — predicted
-      ~8% fewer MXU slot-cycles, but MEASURED NEUTRAL on hardware
-      (246.4k vs hilo's 245.1k frames/s, +0.5%, same process): the
-      kernel is not MXU-occupancy-bound at this margin.  Kept in the
-      sad_bench shootout as ``proddc``; hilo stays the default.
-      Exactness: D entries <= 255 are bf16-exact; dc partials are f32
-      integers <= block_size*255 = 4080; hi = dc>>8 <= 15 and
-      lo = dc&255 <= 255 are bf16-exact; the final f32 sums are
-      integers < 2^24.
-    """
-    sad = _sad_grid(diff_i32, geom.padded_gh, geom, block_size,
-                    col_mode=col_mode)
-    return _cluster_from_grid(sad, geom, bound)
-
-
-def _sad_grid(diff_i32, gh_rows: int, geom: GridGeometry,
-              block_size: int, *, col_mode: str = "hilo",
-              gw_cols: int | None = None):
-    """The SAD block-reduction of sad_step_counts, factored so it can run
-    on a PARTIAL frame slice: ``diff_i32`` is [gh_rows*block_size,
-    gw_cols*block_size] and the result is the int32 SAD grid
-    [gh_rows, gw_cols] (gw_cols defaults to the full padded_gw).
-    Because 16x16 blocks never straddle a slice boundary, the slice
-    grids of a frame concatenate to exactly the full-frame grid — what
-    the sliced kernel (make_sad_kernel_sliced) relies on for
-    bit-exactness.  All the exactness arguments in sad_step_counts'
-    docstring carry over unchanged (row sums <= block_size*255
-    regardless of the slice extents)."""
-    gh_p = gh_rows
-    gw_p = geom.padded_gw if gw_cols is None else gw_cols
-    h_p, w_p = gh_p * block_size, gw_p * block_size
-    cols = jax.lax.broadcasted_iota(jnp.int32, (w_p, gw_p), 0)
-    if col_mode == "dcfirst":
-        c_ind = (cols // block_size ==
-                 jax.lax.broadcasted_iota(jnp.int32, (w_p, gw_p), 1)
-                 ).astype(jnp.bfloat16)                  # [W_p, gw_p]
-        dc = jax.lax.dot_general(
-            diff_i32.astype(jnp.bfloat16), c_ind,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)          # [H_p, gw_p]
-        hi = jnp.floor(dc * (1.0 / 256.0))               # <= 15, exact
-        lo = dc - 256.0 * hi                             # <= 255, exact
-        both = jnp.concatenate([hi, lo], axis=1).astype(
-            jnp.bfloat16)                                # [H_p, 2*gw_p]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (gh_p, h_p), 1)
-        r_ind = (rows // block_size ==
-                 jax.lax.broadcasted_iota(jnp.int32, (gh_p, h_p), 0)
-                 ).astype(jnp.bfloat16)                  # [gh_p, H_p]
-        out = jax.lax.dot_general(
-            r_ind, both, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)          # [gh_p, 2*gw_p]
-        sad = 256.0 * out[:, :gw_p] + out[:, gw_p:]
-        return sad.astype(jnp.int32)
-    if col_mode == "vpurow":
-        # Row reduction on the VPU: split the SUBLANE dim (legal —
-        # only lane-dim reshapes have no Mosaic lowering) and sum the
-        # block_size sublanes per block-row in exact int32, leaving the
-        # MXU only the 16x-smaller hi/lo column matmul.  MEASURED A
-        # CLEAR LOSS on v5e (165k/143k frames/s at F=4/F=8 vs the MXU
-        # row matmul's 251k/261k, same session): Mosaic's sublane
-        # reshape-sums cost far more than the dense row-indicator
-        # matmul, despite the latter's ~M_pad(128)·H_p·W_p slot-cycles
-        # ≈ the frame's own HBM time — the MXU pass overlaps the
-        # stream; the VPU pass doesn't.  Kept for the shootout
-        # (sad_bench ``prodvr``); never the default.
-        assert diff_i32.dtype == jnp.int32, diff_i32.dtype
-        row_sum = jnp.sum(
-            diff_i32.reshape(gh_p, block_size, w_p), axis=1)
-        hi_i = jax.lax.shift_right_logical(row_sum, 8)   # <= 15, exact
-        lo_i = jnp.bitwise_and(row_sum, 255)             # <= 255, exact
-        hi, lo = hi_i.astype(jnp.float32), lo_i.astype(jnp.float32)
-    else:
-        # One dense [gh_p, H_p] row-indicator matmul.  Three
-        # restructurings tried to beat it on hardware and all LOST
-        # (v5e, audited): column-first ordering (dcfirst: neutral at
-        # 1080p, -34% at 4K), VPU sublane row-sums (vpurow: 1.6x
-        # slower), and a <=128-block-row STRIP decomposition (each
-        # strip [m_i, m_i*bs] against a static row slice — fewer MACs
-        # under an M-chunking cost model, but measured 38.4k vs 49.7k
-        # 4K frames/s, -23%: two narrow matmuls pipeline worse in
-        # Mosaic than one fat one).  Keep the single dot.
-        rows = jax.lax.broadcasted_iota(jnp.int32, (gh_p, h_p), 1)
-        r_ind = (rows // block_size ==
-                 jax.lax.broadcasted_iota(jnp.int32, (gh_p, h_p), 0)
-                 ).astype(jnp.bfloat16)                  # [gh_p, H_p]
-        row_sum = jax.lax.dot_general(
-            r_ind, diff_i32.astype(jnp.bfloat16),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)          # [gh_p, W_p]
-    if col_mode in ("hilo", "vpurow"):
-        if col_mode == "hilo":
-            hi = jnp.floor(row_sum * (1.0 / 256.0))      # <= 15, exact
-            lo = row_sum - 256.0 * hi                    # <= 255, exact
-        both = jnp.concatenate([hi, lo], axis=0).astype(
-            jnp.bfloat16)                                # [2*gh_p, W_p]
-        c_ind = (cols // block_size ==
-                 jax.lax.broadcasted_iota(jnp.int32, (w_p, gw_p), 1)
-                 ).astype(jnp.bfloat16)                  # [W_p, gw_p]
-        out = jax.lax.dot_general(
-            both, c_ind, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)          # [2*gh_p, gw_p]
-        sad = 256.0 * out[:gh_p] + out[gh_p:]
-    else:
-        assert col_mode == "highest", col_mode
-        c_ind = (cols // block_size ==
-                 jax.lax.broadcasted_iota(jnp.int32, (w_p, gw_p), 1)
-                 ).astype(jnp.float32)                   # [W_p, gw_p]
-        sad = jax.lax.dot_general(
-            row_sum, c_ind, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)          # [gh_p, gw_p]
-    return sad.astype(jnp.int32)
-
-
-def sad_frames_per_step(geom: GridGeometry, block_size: int,
-                        requested: int = 8) -> int:
-    """VMEM-aware frames-per-step against the kernel's 100MB scoped
-    budget: the frames block is double-buffered (2·F·fb) and the carry
-    block, u8 scratch, and per-frame int32/bf16 diff temporaries cost a
-    further ~8·fb on the same scoped-VMEM stack, so
-    F <= (budget/fb - 8) / 2.  Anchors: F=8 at 1080p's 2.36MB frames
-    compiles and runs (audited 260.8-262.5k frames/s, +4% over F=4 —
-    benchmarks/sad_bench.py prodf8) and is the measured KNEE, not just
-    the VMEM bound: F=16 fits the formula but measured 232.0k (-12%,
-    same session) — 75MB of blocks in flight starves the double
-    buffering.  F=2 at 4K's ~8.9MB measured 101.09MB > the 100MB
-    limit, so 4K stays F=1.  Shared by the product op and the bench's
-    prod variant so the bench measures the kernel the detector
-    actually builds."""
-    frame_bytes = (geom.padded_gh * block_size) * (geom.padded_gw *
-                                                   block_size)
-    budget_frames = (100 * 1024 * 1024 // frame_bytes - 8) // 2
-    return max(1, min(requested, budget_frames))
-
-
-def make_sad_kernel(geom: GridGeometry, block_size: int, bound: int,
-                    F: int, *, step_axis: int = 0,
-                    col_mode: str = "hilo"):
-    """Build the production SAD pallas kernel body: F frames per grid
-    step (in-block consecutive diffs + one against the VMEM scratch
-    carry — one HBM read per frame).  ``step_axis`` is which grid axis
-    walks the frame blocks (the product op uses axis 0; the bench's
-    chained sweep puts its repeat axis first and the frame walk on
-    axis 1); ``col_mode`` selects the exact column-reduction variant
-    (see sad_step_counts)."""
-
-    # The diff stays int32 — the fastest legal VPU compute dtype here.
-    # A bf16-diff formulation (bit-exact: u8 diffs <= 255 are bf16-
-    # exact) was tried to halve the full-frame scoped-VMEM temporaries
-    # and DID un-block F=2 at 4K, but the bf16 arithmetic itself costs
-    # ~14% (4K F=1: 42.8k vs 49.7k frames/s), so bf16 F=2 (48.1k) at
-    # best ties int32 F=1 — negative result #4, reverted.
-    def kernel(carry_ref, frames_ref, counts_ref, prev_ref):
-        j = pl.program_id(step_axis)
-
-        @pl.when(j == 0)
-        def _seed():
-            prev_ref[:] = carry_ref[0]
-
-        prev = prev_ref[:].astype(jnp.int32)
-        for fi in range(F):
-            cur = frames_ref[fi].astype(jnp.int32)       # [H_p, W_p]
-            n = sad_step_counts(jnp.abs(cur - prev), geom, block_size,
-                                bound, col_mode=col_mode)
-            counts_ref[fi] = n.reshape(1, 1)
-            prev = cur
-        prev_ref[:] = frames_ref[F - 1]
-
-    return kernel
-
-
-def make_sad_kernel_sliced(geom: GridGeometry, block_size: int,
-                           bound: int, S: int, *, step_axis: int = 0,
-                           col_mode: str = "hilo"):
-    """Sub-frame-blocked SAD kernel: each frame is processed as S
-    VERTICAL slices of [H_p, W_p/S], one slice per grid step.
-
-    Motivation (4K, VERDICT r3 item 2): the F=1 full-frame kernel leaves
-    ~12% of roofline in un-overlapped per-step pipeline bubbles (the
-    ctrlf2/ctrlf4 controls measure 705-730 GB/s vs the F=1 control's
-    611-628) and F=2 cannot fit the 100MB scoped VMEM at 8.9MB frames.
-    S slices give F=S-style DMA/compute pipelining at 1/S of the block
-    size and ~half the diff-temporary VMEM.
-
-    The slicing axis is the LANE (width) axis, not sublanes: per-slice
-    grid columns land in the assembly scratch at lane offsets s*GW_p/S,
-    and Mosaic requires dynamic lane-store offsets to be 128-aligned
-    (the sublane-sliced first cut failed to lower at 4K: 136/2 = 68
-    grid-row offsets are not 8-aligned).  Hence GW_p must be divisible
-    by 128*S — true exactly at 4K (GW_p=256, S=2), the geometry this
-    kernel exists for.
-
-    Exactness: 16x16 blocks never straddle a slice boundary (W_p/S is a
-    multiple of block_size), so per-slice SAD grids (_sad_grid)
-    concatenate to exactly the full-frame grid; the grid assembles in a
-    VMEM scratch and the shared cluster rule fires once per frame on the
-    whole grid — bit-identical to make_sad_kernel by construction
-    (asserted in tests/test_sad.py).
-
-    Kernel refs: (carry, frames_sliced, counts, prev_scratch,
-    grid_scratch) where the grid is (..., nb, S) with the frame walk at
-    ``step_axis``; ``frames_sliced`` blocks are [1, H_p, W_p/S] indexed
-    (frame, 0, slice); ``carry`` is the full [1, H_p, W_p] previous
-    frame (constant index — fetched once per outer step, read only at
-    j == 0).
-    """
-    gh_p, gw_p = geom.padded_gh, geom.padded_gw
-    if gw_p % S or (gw_p // S) % 128:
-        raise ValueError(
-            f"padded_gw {gw_p} must be divisible by 128*S (S={S}): "
-            f"dynamic lane-store offsets must be 128-aligned")
-    gw_s = gw_p // S
-    w_s = gw_s * block_size
-
-    def kernel(carry_ref, frames_ref, counts_ref, prev_ref, grid_ref):
-        j = pl.program_id(step_axis)
-        s = pl.program_id(step_axis + 1)
-        sl = pl.ds(s * w_s, w_s)
-
-        @pl.when(j == 0)
-        def _seed():
-            prev_ref[:, sl] = carry_ref[0, :, sl]
-
-        prev = prev_ref[:, sl].astype(jnp.int32)
-        cur = frames_ref[0].astype(jnp.int32)            # [H_p, w_s]
-        g = _sad_grid(jnp.abs(cur - prev), gh_p, geom, block_size,
-                      col_mode=col_mode, gw_cols=gw_s)
-        grid_ref[:, pl.ds(s * gw_s, gw_s)] = g
-        prev_ref[:, sl] = frames_ref[0]
-
-        @pl.when(s == S - 1)
-        def _decide():
-            n = _cluster_from_grid(grid_ref[:], geom, bound)
-            counts_ref[0] = n.reshape(1, 1)
-
-    return kernel
-
-
-def make_sad_op_pallas(geom: GridGeometry, *, sad_threshold: float,
-                       block_size: int, clusters_needed: int,
-                       height: int, width: int, interpret: bool = False,
-                       frames_per_step: int = 8, device=None,
-                       slices_per_frame: int | None = None):
-    """Pallas: ``frames_per_step`` frames per grid step (in-block
-    consecutive diffs + one against the VMEM scratch carry — one HBM
-    read per frame), block reductions via two block-indicator matmuls
-    on the MXU (no strided gathers).  Multi-frame steps amortize the
-    per-step pipeline cost — the single biggest factor in the variant
-    shootout (benchmarks/sad_bench.py: 64k -> 221k frames/s at 1080p).
-
-    When the VMEM auto-scale forces F=1 (4K frames) and the geometry
-    permits it (GW_p divisible by 256), the op switches to the
-    lane-axis SLICED kernel (make_sad_kernel_sliced, S=2): half-frame
-    steps restore some DMA/compute pipelining — measured +4.1% at 4K
-    (54.0k vs 51.9k frames/s same session, benchmarks/sad_bench.py
-    prodh2, round 4).  ``slices_per_frame`` overrides (1 disables).
-    """
-    bound = sad_threshold_sum(sad_threshold, block_size)
-    eff = max(1, clusters_needed)
-    gh_p, gw_p = geom.padded_gh, geom.padded_gw
-    h_p = gh_p * block_size
-    w_p = gw_p * block_size
-    F = sad_frames_per_step(geom, block_size, frames_per_step)
-    # slices_per_frame: None = auto (S=2 when F==1 and the geometry
-    # permits), 1 = flat kernel, >=2 = explicit request.  An explicit
-    # request that cannot be honored must FAIL, not silently fall back
-    # to S=1 — a caller benching the sliced kernel would otherwise
-    # measure the flat one (advisor finding, round 4).
-    if slices_per_frame is not None and slices_per_frame < 1:
-        raise ValueError(
-            f"slices_per_frame must be >= 1, got {slices_per_frame}")
-    S = 1
-    if slices_per_frame is not None and slices_per_frame >= 2:
-        if F > 1:
-            raise ValueError(
-                f"slices_per_frame={slices_per_frame} requires one frame "
-                f"per step, but frames_per_step resolved to F={F}; pass "
-                f"frames_per_step=1 to slice this geometry")
-        if gw_p % (128 * slices_per_frame):
-            raise ValueError(
-                f"slices_per_frame={slices_per_frame} needs padded_gw "
-                f"({gw_p}) divisible by {128 * slices_per_frame} (lane "
-                f"offsets must be 128-aligned; make_sad_kernel_sliced "
-                f"enforces the same bound)")
-        S = slices_per_frame
-    elif slices_per_frame is None and F == 1 and gw_p % 256 == 0:
-        S = 2
-
-    if S > 1:
-        kernel = make_sad_kernel_sliced(geom, block_size, bound, S)
-
-        @jax.jit
-        def device_scan(carry, rest):
-            """Sliced path (F=1): one frame per outer step, S vertical
-            slices per frame.  Same split carry/rest interface."""
-            nb = rest.shape[0]
-            counts = pl.pallas_call(
-                kernel,
-                grid=(nb, S),
-                in_specs=[pl.BlockSpec((1, h_p, w_p),
-                                       lambda j, s: (0, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((1, h_p, w_p // S),
-                                       lambda j, s: (j, 0, s),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((1, 1, 1),
-                                       lambda j, s: (j, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((nb, 1, 1), jnp.int32),
-                scratch_shapes=[pltpu.VMEM((h_p, w_p), jnp.uint8),
-                                pltpu.VMEM((gh_p, gw_p), jnp.int32)],
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024),
-                interpret=interpret,
-            )(carry, rest)
-            return counts[:, 0, 0]
-    else:
-        kernel = make_sad_kernel(geom, block_size, bound, F)
-
-        @jax.jit
-        def device_scan(carry, rest):
-            """carry u8 [1, H_p, W_p], rest u8 [nb*F, H_p, W_p] -> counts
-            i32 [nb*F].  Split interface: an in-jit luma[1:] slice would be
-            a full HBM copy (measured 221k -> 82k frames/s); callers slice
-            host-side (zero-copy views) instead."""
-            nb = rest.shape[0] // F
-            counts = pl.pallas_call(
-                kernel,
-                grid=(nb,),
-                in_specs=[pl.BlockSpec((1, h_p, w_p), lambda j: (0, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((F, h_p, w_p), lambda j: (j, 0, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((F, 1, 1), lambda j: (j, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((nb * F, 1, 1), jnp.int32),
-                scratch_shapes=[pltpu.VMEM((h_p, w_p), jnp.uint8)],
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024),
-                interpret=interpret,
-            )(carry, rest)
-            return counts[:, 0, 0]
-
-    def op(luma):
-        """luma [b+1, H_p, W_p] (frame 0 = previous carry) ->
-        (counts i32 [b], motion bool [b]), as host arrays."""
-        b = luma.shape[0] - 1
-        nb = -(-b // F)
-        luma = np.asarray(luma)
-        carry, rest = luma[:1], luma[1:]          # zero-copy host views
-        if nb * F != b:
-            rest = np.concatenate(
-                [rest, np.zeros((nb * F - b, h_p, w_p), np.uint8)])
-        # device_put(x, None) = default placement, same as jnp.asarray;
-        # a non-None device pins the stream's dispatches to its chip
-        counts = np.asarray(device_scan(jax.device_put(carry, device),
-                                        jax.device_put(rest, device)))[:b]
-        return counts, counts >= eff
-
-    op.device_scan = device_scan
-    op.frames_per_step = F
-    op.slices_per_frame = S
-    op.eff_clusters = eff
     return op
 
 

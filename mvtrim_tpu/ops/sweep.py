@@ -2,8 +2,9 @@
 
 The reference evaluates exactly one (MV_THRESHOLD_SQ, VECTORS_NEEDED,
 CLUSTERS_NEEDED) triple per process run; tuning means re-decoding the
-video once per candidate.  On TPU the marginal cost of extra configs is a
-few VPU ops per frame, so a whole tuning grid rides one decode:
+video once per candidate.  On the device the marginal cost of extra
+configs is a few elementwise ops per frame, so a whole tuning grid rides
+one decode:
 
 * ``make_vote_sweep_op``  — vote grids were scattered host-side with a
   fixed MV threshold, so the sweep covers (vectors_needed,
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 
 from ..core.types import GridGeometry
 from .cluster import cluster_counts_traced as _cluster_counts_traced
+from .mv_vote import mv_votes
 
 
 def make_vote_sweep_op(geom: GridGeometry):
@@ -64,14 +66,13 @@ def make_sad_sweep_op(geom: GridGeometry, block_size: int):
     config; each sweep point costs one traced cluster pass
     (cluster_counts_traced with the SAD bound as the activity
     threshold) — the same math the single-config SAD ops dispatch
-    (ops/sad._cluster_from_grid).  The reference needs one full re-run
+    (ops/sad.make_sad_op_xla).  The reference needs one full re-run
     per config triple (config.hpp single-triple-per-process); it has
     no pixel-domain path at all (motion_scanner.cpp:219-221 decides
     MV-less frames False), so this sweeps a capability extension.
 
-    XLA build (reduce_window): runs on every backend.  Tuning sweeps
-    are decode-bound on the host, so the pallas SAD kernel's edge is
-    irrelevant here.
+    Same reduce_window formulation as the single-config SAD op
+    (ops/sad.make_sad_op_xla).
     """
 
     @jax.jit
@@ -101,51 +102,26 @@ def make_mv_sweep_op(geom: GridGeometry, block_shift: int):
     -> motion bool [B, K].
 
     ``bounds`` are integer magnitude bounds (ceil of the double threshold,
-    ops/mv_vote.threshold_bound) so the compare is exact.
+    ops/mv_vote.threshold_bound) so the compare is exact.  The vote
+    scatter is the single-config op's (ops/mv_vote.mv_votes), run once
+    per sweep point.
     """
-    gh_p, gw_p = geom.padded_gh, geom.padded_gw
-
-    def frame(dst_x, dst_y, src_x, src_y, count, bounds, vec_needs,
-              clusters_needs):
-        m = dst_x.shape[-1]
-        dx = dst_x - src_x
-        dy = dst_y - src_y
-        mag = dx * dx + dy * dy
-        gx = jax.lax.shift_right_arithmetic(dst_x, block_shift)
-        gy = jax.lax.shift_right_arithmetic(dst_y, block_shift)
-        idx = jax.lax.broadcasted_iota(jnp.int32, (m,), 0)
-        base_keep = ((idx < count)
-                     & (gx >= 0) & (gx < geom.gw)
-                     & (gy >= geom.y_min) & (gy < geom.y_max))
-
-        rows_y = jax.lax.broadcasted_iota(jnp.int32, (gh_p, m), 0)
-        cols_x = jax.lax.broadcasted_iota(jnp.int32, (m, gw_p), 1)
-        one_x = (cols_x == gx[:, None]).astype(jnp.float32)   # [M, GW]
-
-        def per_config(bound, vec_need, clust_need):
-            keep = base_keep & (mag >= bound)
-            one_y = ((rows_y == gy[None, :])
-                     & keep[None, :]).astype(jnp.float32)      # [GH, M]
-            votes = jax.lax.dot_general(
-                one_y, one_x, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            counts = _cluster_counts_traced(
-                votes.astype(jnp.int32), geom, vec_need)
-            return counts >= jnp.maximum(1, clust_need)        # scalar
-
-        # count == 0 <=> no MV side data (FFmpeg never attaches an empty
-        # list): the reference decides such frames False before phase 2
-        # runs (motion_scanner.cpp:219-221) — unreachable from the votes
-        # alone at vec_need == 0, where zero votes satisfy >= 0
-        return jax.vmap(per_config)(bounds, vec_needs,
-                                    clusters_needs) & (count > 0)
 
     @jax.jit
     def op(dst_x, dst_y, src_x, src_y, counts, bounds, vec_needs,
            clusters_needs):
-        return jax.vmap(
-            frame, in_axes=(0, 0, 0, 0, 0, None, None, None)
-        )(dst_x, dst_y, src_x, src_y, counts, bounds, vec_needs,
-          clusters_needs)
+        def per_config(bound, vec_need, clust_need):
+            votes = mv_votes(dst_x, dst_y, src_x, src_y, counts, geom,
+                             bound, block_shift)
+            n = _cluster_counts_traced(votes, geom, vec_need)
+            # count == 0 <=> no MV side data (FFmpeg never attaches an
+            # empty list): the reference decides such frames False before
+            # phase 2 runs (motion_scanner.cpp:219-221) — unreachable from
+            # the votes alone at vec_need == 0, where zero votes satisfy
+            # >= 0
+            return (n >= jnp.maximum(1, clust_need)) & (counts > 0)
+
+        return jax.vmap(per_config, out_axes=1)(bounds, vec_needs,
+                                                clusters_needs)
 
     return op

@@ -2,7 +2,7 @@
 
 from .archive import ScanCheckpoint, scan_archive
 from .mesh import (build_mesh, shard_votes, sharded_scan_step,
-                   stream_device_assignment)
+                   stream_device)
 
 __all__ = ["ScanCheckpoint", "scan_archive", "build_mesh", "shard_votes",
-           "sharded_scan_step", "stream_device_assignment"]
+           "sharded_scan_step", "stream_device"]

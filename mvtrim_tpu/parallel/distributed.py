@@ -1,20 +1,22 @@
-"""Multi-host (pod / multi-process) initialization.
+"""Multi-process initialization.
 
 The reference has no cross-machine story at all (SURVEY.md §5: no
-NCCL/MPI/RPC); here the distributed substrate is JAX's: each host process
-joins a coordination service and ``jax.devices()`` then spans the pod, so
-``parallel.mesh.build_mesh()`` / ``sharded_scan_step`` transparently shard
-frame batches across hosts with ICI/DCN collectives.
+NCCL/MPI/RPC); here the distributed substrate is JAX's: each process
+joins a coordination service and ``jax.devices()`` then spans every
+process's cards, so ``parallel.mesh.build_mesh()`` / ``sharded_scan_step``
+shard frame batches across processes with collectives.
 
 IMPORTANT: call ``initialize()`` before any other JAX usage —
 ``jax.distributed.initialize`` must run before backends initialize, so
-this function decides from environment variables alone and never queries
-jax state beforehand.
+this function decides from its arguments and environment variables alone
+and never queries jax state beforehand.
 
-On Cloud TPU pods, ``jax.distributed.initialize()`` discovers everything
-from the metadata server; elsewhere pass coordinator/process info
-explicitly or via the standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES
-/ JAX_PROCESS_ID env vars.
+Nothing discovers a cluster by itself: pass the coordinator and process
+info explicitly or via the standard JAX_COORDINATOR_ADDRESS /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.  Several processes on one
+host must each own exactly one card — a JAX process reserves most of a
+card's memory when it starts, so two on one card fail.  Start each with
+its own CUDA_VISIBLE_DEVICES (process p: ``CUDA_VISIBLE_DEVICES=p``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ _initialized = False
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> bool:
-    """Join the multi-host coordination service (idempotent).
+    """Join the multi-process coordination service (idempotent).
 
     Returns True when running multi-process after the call, False for
-    single-process operation (the default everywhere except pods).
-    Must be called before any JAX computation/backend use.
+    single-process operation (no coordinator given).  Must be called
+    before any JAX computation/backend use.
     """
     global _initialized
     # an empty env var (unfilled compose/env template) means UNSET — it
@@ -41,10 +43,7 @@ def initialize(coordinator_address: str | None = None,
     coordinator_address = (coordinator_address
                            or os.environ.get("JAX_COORDINATOR_ADDRESS")
                            or None)
-    explicit = coordinator_address is not None
-    on_tpu_pod = bool(os.environ.get("TPU_WORKER_HOSTNAMES"))
-
-    if not (explicit or on_tpu_pod):
+    if coordinator_address is None:
         return False
 
     import jax
@@ -52,9 +51,7 @@ def initialize(coordinator_address: str | None = None,
     if _initialized:
         return jax.process_count() > 1
 
-    kwargs = {}
-    if coordinator_address:
-        kwargs["coordinator_address"] = coordinator_address
+    kwargs = {"coordinator_address": coordinator_address}
     if num_processes or os.environ.get("JAX_NUM_PROCESSES"):
         kwargs["num_processes"] = int(
             num_processes or os.environ["JAX_NUM_PROCESSES"])

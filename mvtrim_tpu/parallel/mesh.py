@@ -1,18 +1,21 @@
 """Device mesh discovery and sharded scan steps.
 
 The reference's parallel substrate is cgroup-aware CPU enumeration +
-thread pinning (system.cpp:107-225); the TPU-native substrate is a
+thread pinning (system.cpp:107-225); here the substrate is a
 ``jax.sharding.Mesh``.  Two mesh axes are meaningful for this workload:
 
 * ``data``  — frames (from one long archive or many videos) shard across
-  chips; each chip scans its shard and a ``psum`` merges global motion
-  statistics over ICI.
+  cards; each card scans its shard and a ``psum`` merges global motion
+  statistics across the cards.
 * ``sweep`` — detector configurations (vote thresholds) shard across
-  chips; the same frames are scored under per-chip thresholds in one
+  cards; the same frames are scored under per-card thresholds in one
   step.  The reference can only re-run the whole binary per config.
 
-``sharded_scan_step`` builds the full jit'd multi-chip scan step the
-driver dry-runs (see __graft_entry__.dryrun_multichip).
+``sharded_scan_step`` builds the full jit'd multi-card scan step that
+__graft_entry__.dryrun_multichip runs on a virtual CPU mesh.
+
+The mesh follows the algorithm alone: the cards of one host are joined
+all to all (NVLink), so no axis order is tied to a physical topology.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def build_mesh(n_devices: int | None = None,
                allow_cpu_fallback: bool = False) -> Mesh:
     """Mesh over available devices: ('data', 'sweep').
 
-    ``sweep`` chips hold distinct detector configs; the rest of the
+    ``sweep`` cards hold distinct detector configs; the rest of the
     devices spread the frame batch.  If the default platform has fewer
     devices than requested, the call FAILS loudly with the device
     inventory — a mis-sized production run must not silently "scan" on
@@ -64,14 +67,14 @@ def build_mesh(n_devices: int | None = None,
 
 def sharded_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
                       sweep_clusters: bool = False):
-    """Build the jit'd multi-chip scan step.
+    """Build the jit'd multi-card scan step.
 
     Returns ``step(votes, vec_needs) -> (motion, global_motion_frames)``:
 
       votes     uint8 [B, GH_p, GW_p], sharded over 'data'
       vec_needs int32 [K], sharded over 'sweep' (per-config thresholds)
       motion    bool  [B, K] — frame x config decisions, sharded (data, sweep)
-      global_motion_frames int32 [K] — psum over 'data' (ICI collective),
+      global_motion_frames int32 [K] — psum over 'data' (a collective),
                 replicated over 'data', sharded over 'sweep'
 
     With ``sweep_clusters=True`` the step takes a third input
@@ -101,7 +104,7 @@ def sharded_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
                 out_axes=1)(vec_needs)                    # [B_l, K_l]
         else:
             motion = jax.vmap(per_config, out_axes=1)(vec_needs, clu_needs)
-        # Global motion-frame count per config: ICI collective over 'data'.
+        # Global motion-frame count per config: collective over 'data'.
         global_count = jax.lax.psum(
             jnp.sum(motion.astype(jnp.int32), axis=0), axis_name="data")
         return motion, global_count
@@ -136,7 +139,7 @@ def build_process_mesh() -> Mesh:
 
 def sharded_bits_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
                            gather_motion: bool = False):
-    """Packed-payload multi-chip scan step (the archive product path).
+    """Packed-payload multi-card scan step (the archive product path).
 
     Returns ``step(bits) -> (motion, global_motion_frames)``:
 
@@ -146,18 +149,18 @@ def sharded_bits_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
              'sweep' dimension; any sweep axis in the mesh carries
              replicated work.
       motion bool [B], sharded over 'data' — or, with
-             ``gather_motion=True``, all-gathered over 'data' (ICI) and
+             ``gather_motion=True``, all-gathered over 'data' and
              returned fully replicated so every *process* of a
              multi-process mesh can read the whole decision vector
              (per-process host code cannot address other processes'
              shards; the collective is the bridge)
-      global_motion_frames int32 — psum over 'data' (ICI), replicated
+      global_motion_frames int32 — psum over 'data', replicated
 
-    9x less H2D/ICI traffic than the uint8-grid step for the same
+    9x less H2D and collective traffic than the uint8-grid step for the same
     decisions (packed_cluster_counts does the math in the packed domain).
     The archive path deliberately keeps the byte layout rather than the
     detector's int32 word layout: sharded scans are transfer-bound
-    (H2D + ICI), and bytes are 1.5x smaller on the wire; the word
+    (H2D + collectives), and bytes are 1.5x smaller on the wire; the word
     kernel's compute edge only matters when the device is the
     bottleneck (single-host pipeline).
     """
@@ -171,9 +174,7 @@ def sharded_bits_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
     def local_step(bits):
         assert bits.shape[-1] == lanes, (bits.shape, lanes)
         masks = tuple(jnp.asarray(m) for m in masks_np)
-        counts = packed_cluster_counts(
-            bits.astype(jnp.int32), geom, masks,
-            lambda v, s: jnp.roll(v, s, axis=-1))[:, 0]
+        counts = packed_cluster_counts(bits.astype(jnp.int32), geom, masks)
         motion = counts >= jnp.int32(clusters_eff)
         global_count = jax.lax.psum(
             jnp.sum(motion.astype(jnp.int32)), axis_name="data")
@@ -212,8 +213,7 @@ def _local_sad_grids(carry, frames, geom: GridGeometry, block_size: int):
     single-device SAD path.  The in-jit concat costs one extra HBM pass
     over the shard; archive/tune SAD scans are host-decode-bound
     (~hundreds of frames/s/core vs >10^5 frames/s device SAD), so the
-    simple formulation wins over threading the pallas carry machinery
-    through shard_map."""
+    simple formulation wins over threading a carry through shard_map."""
     x = jnp.concatenate([carry, frames], axis=0).astype(jnp.int32)
     diff = jnp.abs(x[1:] - x[:-1])
     return jax.lax.reduce_window(
@@ -224,7 +224,7 @@ def _local_sad_grids(carry, frames, geom: GridGeometry, block_size: int):
 
 
 def sharded_sad_sweep_step(geom: GridGeometry, cfg: Config, mesh: Mesh):
-    """Multi-chip pixel-domain sweep step (tune --mesh --scan-input sad).
+    """Multi-card pixel-domain sweep step (tune --mesh --scan-input sad).
 
     Returns ``step(carries, frames, bounds, clus) -> motion bool [B, K]``:
 
@@ -272,7 +272,7 @@ def sharded_sad_sweep_step(geom: GridGeometry, cfg: Config, mesh: Mesh):
 
 def sharded_sad_scan_step(geom: GridGeometry, cfg: Config, mesh: Mesh,
                           gather_motion: bool = False):
-    """Pixel-domain multi-chip scan step — the MV-less archive path.
+    """Pixel-domain multi-card scan step — the MV-less archive path.
 
     Returns ``step(carries, frames, valid) -> (motion, global_count)``:
 
@@ -341,8 +341,11 @@ def shard_votes(votes: np.ndarray, mesh: Mesh):
         votes, NamedSharding(mesh, P("data", None, None)))
 
 
-def stream_device_assignment(n_streams: int, mesh: Mesh) -> list[int]:
-    """Round-robin multi-video streams onto mesh devices (replaces the
-    reference's disjoint per-stream cpusets, batch_processor.cpp:101-110)."""
-    n_dev = mesh.devices.size
-    return [i % n_dev for i in range(n_streams)]
+def stream_device(stream_id: int, devices=None):
+    """The card batch stream ``stream_id`` analyses on: streams go
+    round-robin over ``devices`` (default ``jax.devices()``), replacing
+    the reference's disjoint per-stream cpusets
+    (batch_processor.cpp:101-110).  None on a one-device host, where
+    JAX's default placement applies."""
+    devices = jax.devices() if devices is None else devices
+    return devices[stream_id % len(devices)] if len(devices) > 1 else None

@@ -39,7 +39,8 @@ import numpy as np
 from ..core import oracle
 from ..core.config import Config
 from ..core.types import ScanTask
-from ..cut.executor import CutJob, CutQueue, execute_cut
+from ..cut.executor import (CutJob, CutQueue, execute_cut,
+                            quantized_segments)
 from ..io import native
 from ..models.mv_detector import MVClusterDetector
 from ..models.sad_detector import SADDetector
@@ -76,7 +77,7 @@ class ProcessingPipeline:
         self.num_threads = num_threads
         self.cfg = cfg or Config.from_env()
         self.cut_queue = cut_queue
-        self.device = device  # pin this stream's analysis to one chip
+        self.device = device  # pin this stream's analysis to one card
         self.duration = 0.0
         self.time_removed = 0.0
         self.saved_pct = 0.0
@@ -110,13 +111,6 @@ class ProcessingPipeline:
             # operator configured (same guard as MVT_SCAN_INPUT below)
             log.warn(f"Unknown MVT_PIPELINE={mode!r}; using auto", sid)
             mode = "auto"
-        if self.cfg.compile_cache_dir:
-            # env-var plumbing in mvtrim_tpu/__init__ covers processes
-            # that import the package; this covers programmatic callers
-            # that built a Config with an explicit dir after jax init
-            from ..utils.system import enable_compile_cache
-
-            enable_compile_cache(self.cfg.compile_cache_dir)
         profiler_cm = None
         if self.cfg.profile_dir:
             # device-level tracing (the rebuild's analog of the reference's
@@ -166,7 +160,7 @@ class ProcessingPipeline:
                 "total_run", (time.perf_counter_ns() - t_total) // 1000)
             if sid < 0:
                 TimingCollector.print_summary()
-            self._emit_metrics(result, 0, None, t_total)
+            self._emit_metrics(result, 0, None, t_total, [])
             return 0
 
         # --- segmentation (pipeline.cpp:321-356) ---
@@ -205,13 +199,16 @@ class ProcessingPipeline:
         if sid < 0:
             TimingCollector.print_summary()
         self.print_cut_summary()
-        self._emit_metrics(result, int(timestamps.size), is_cut, t_total)
+        self._emit_metrics(result, int(timestamps.size), is_cut, t_total,
+                           out_segments)
         return 0
 
     def _emit_metrics(self, result: ScanResult, motion_frames: int,
-                      is_cut: bool | None, t_total: int) -> None:
+                      is_cut: bool | None, t_total: int,
+                      segments) -> None:
         """Structured per-video metrics (MVT_METRICS_JSON, append-only
-        JSON lines) — the metrics export the reference lacks."""
+        JSON lines) — the metrics export the reference lacks.
+        ``cut_segments`` is the %.2f-quantized cut list the cut ran on."""
         if not self.cfg.metrics_json:
             return
         import json
@@ -231,6 +228,7 @@ class ProcessingPipeline:
             "saved_pct": self.saved_pct,
             "decision": ("cut" if is_cut else
                          "copy" if is_cut is not None else "no_motion"),
+            "cut_segments": quantized_segments(segments),
             "wall_sec": (time.perf_counter_ns() - t_total) / 1e9,
             # sum duplicates: the auto mv->sad fallback records each scan
             # phase twice (a plain dict() would keep only the last)
@@ -336,7 +334,7 @@ class ProcessingPipeline:
 
         # Warm the device program BEFORE spawning decode threads: tracing +
         # compilation are host-CPU-heavy and would otherwise contend with
-        # the decoders (painful on small hosts / remote-compile setups).
+        # the decoders (painful on small hosts).
         warm_t0 = time.perf_counter_ns()
         if kind != "mv":
             detector.scan_luma(np.zeros((2, height, width), np.uint8))

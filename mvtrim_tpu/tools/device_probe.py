@@ -1,10 +1,10 @@
 """device_probe — accelerator/host capability report.
 
-The TPU-native analog of the reference's cacheLineSize build probe
+This rebuild's analog of the reference's cacheLineSize build probe
 (tools/cacheLineSize.cpp, baked into the build via CMake try_run): instead
 of cache-line geometry for padded atomics, what matters here is the device
-inventory, tile geometry for the scan kernels, and the host CPU budget for
-decode workers.  Prints JSON.
+inventory, the padded grid geometry of the scan ops, and the host CPU
+budget for decode workers.  Prints JSON.
 
 Usage: python -m mvtrim_tpu.tools.device_probe
 """
@@ -49,8 +49,6 @@ def probe() -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from ..utils.system import apply_platform_override
-    apply_platform_override()  # MVT_JAX_PLATFORM
     print(json.dumps(probe(), indent=2))
     return 0
 

@@ -80,8 +80,6 @@ def compute_heatmap(input_path: str, cfg: Config | None = None):
 
 
 def main(argv: list[str] | None = None) -> int:
-    from ..utils.system import apply_platform_override
-    apply_platform_override()  # MVT_JAX_PLATFORM
     parser = argparse.ArgumentParser(prog="heatmap")
     parser.add_argument("input")
     parser.add_argument("-o", "--output", default=None,

@@ -59,9 +59,9 @@ def sweep(input_path: str, thresholds, vectors, clusters, *,
     threshold compare exactly — ops/mv_vote.threshold_bound).
 
     ``mesh`` (a jax.sharding.Mesh with 'data'/'sweep' axes, e.g. from
-    parallel.mesh.build_mesh) shards the scoring across chips: frames
+    parallel.mesh.build_mesh) shards the scoring across cards: frames
     over 'data', (vectors, clusters) pairs over 'sweep', one
-    sharded_scan_step dispatch per (batch, threshold) — the multi-chip
+    sharded_scan_step dispatch per (batch, threshold) — the multi-card
     sweep the reference would need one box-wide re-run per config for.
     Decisions are identical to the single-device path (asserted in
     tests/test_sweep.py on the 8-device CPU mesh).
@@ -545,8 +545,6 @@ def _sweep_mv_raw(reader, cfg, geom, thresholds, vc_pairs, frame_skip,
 
 
 def main(argv: list[str] | None = None) -> int:
-    from ..utils.system import apply_platform_override
-    apply_platform_override()  # MVT_JAX_PLATFORM
     parser = argparse.ArgumentParser(prog="tune")
     parser.add_argument("input")
     parser.add_argument("--thresholds", default=None,

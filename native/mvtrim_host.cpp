@@ -1,7 +1,7 @@
-// mvtrim_host: native host media layer for the TPU motion trimmer.
+// mvtrim_host: native host media layer for the motion trimmer.
 //
 // This is the host half of the framework: everything FFmpeg-adjacent that
-// cannot (and should not) run on the TPU.  It plays the role the reference
+// cannot (and should not) run on the device.  It plays the role the reference
 // implementation's memory_io.cpp + motion_scanner.cpp (decode half) +
 // ffmpeg_executor.cpp play (see /root/reference), but with a library API
 // shaped for batched device consumption:
@@ -42,6 +42,10 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+#ifdef MVT_LIBAV_ABI
+// An FFmpeg 8 runtime without its development files (see libav_abi.h).
+#include "libav_abi.h"
+#else
 extern "C" {
 #include <libavcodec/avcodec.h>
 #include <libavformat/avformat.h>
@@ -49,6 +53,7 @@ extern "C" {
 #include <libavutil/motion_vector.h>
 #include <libavutil/opt.h>
 }
+#endif
 
 #define MVT_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -522,8 +527,7 @@ MVT_EXPORT long mvt_scan_grids(MvtHandle *h, double start, double end,
 // Exactness: the reference's phase-2 cluster test (motion_scanner.cpp:
 // 277-293) reads votes only through `>= VECTORS_NEEDED` comparisons, so
 // the boolean mask carries the full decision.  Packing shrinks H2D to
-// gh*ceil(gw/8) bytes/frame — 8x less PCIe (or tunnel) traffic than the
-// uint8 grids, which is what feeds the 50k frames/s/chip target.
+// gh*ceil(gw/8) bytes/frame — 8x less PCIe traffic than the uint8 grids.
 MVT_EXPORT long mvt_scan_bits(MvtHandle *h, double start, double end,
                               double threshold_sq, int block_shift, int gw,
                               int gh, int y_min, int y_max,
@@ -1348,7 +1352,100 @@ MVT_EXPORT int mvt_stream_types(MvtHandle *h, int32_t *out_types,
   return n;
 }
 
-MVT_EXPORT const char *mvt_version() { return "mvtrim_host 0.1.0"; }
+MVT_EXPORT const char *mvt_version() {
+#ifdef MVT_LIBAV_ABI
+  return "mvtrim_host 0.1.0 (FFmpeg 8 runtime, libav_abi.h declarations)";
+#else
+  return "mvtrim_host 0.1.0 (FFmpeg development headers)";
+#endif
+}
+
+// Checks that the loaded libav matches what this library was compiled
+// against.  With FFmpeg's own headers that holds by construction.  With
+// libav_abi.h it checks the major versions, the offset of every declared
+// field that FFmpeg also lists as an AVOption, and the defaults that
+// av_frame_alloc/av_packet_alloc write at the declared offsets.  Returns 0,
+// or -1 with a message in err.
+MVT_EXPORT int mvt_libav_check(char *err, int errlen) {
+#ifdef MVT_LIBAV_ABI
+  const unsigned majors[3] = {avformat_version() >> 16,
+                              avcodec_version() >> 16,
+                              avutil_version() >> 16};
+  if (majors[0] != 62 || majors[1] != 62 || majors[2] != 60) {
+    set_err(err, errlen,
+            "libav_abi.h describes libavformat 62 / libavcodec 62 / "
+            "libavutil 60; loaded " + std::to_string(majors[0]) + "/" +
+                std::to_string(majors[1]) + "/" + std::to_string(majors[2]));
+    return -1;
+  }
+  struct Field {
+    const AVClass *cls;
+    const char *option;
+    size_t offset;
+  };
+  const AVClass *cc = avcodec_get_class();
+  const AVClass *fc = avformat_get_class();
+  const AVClass *sc = av_stream_get_class();
+  const Field fields[] = {
+      {cc, "b", offsetof(AVCodecContext, bit_rate)},
+      {cc, "flags", offsetof(AVCodecContext, flags)},
+      {cc, "flags2", offsetof(AVCodecContext, flags2)},
+      {cc, "time_base", offsetof(AVCodecContext, time_base)},
+      {cc, "pkt_timebase", offsetof(AVCodecContext, pkt_timebase)},
+      {cc, "delay", offsetof(AVCodecContext, delay)},
+      {cc, "video_size", offsetof(AVCodecContext, width)},
+      {cc, "pixel_format", offsetof(AVCodecContext, pix_fmt)},
+      {cc, "bf", offsetof(AVCodecContext, max_b_frames)},
+      {cc, "g", offsetof(AVCodecContext, gop_size)},
+      {cc, "ar", offsetof(AVCodecContext, sample_rate)},
+      {cc, "ch_layout", offsetof(AVCodecContext, ch_layout)},
+      {cc, "frame_size", offsetof(AVCodecContext, frame_size)},
+      {cc, "threads", offsetof(AVCodecContext, thread_count)},
+      {cc, "thread_type", offsetof(AVCodecContext, thread_type)},
+      {cc, "skip_loop_filter", offsetof(AVCodecContext, skip_loop_filter)},
+      {cc, "skip_idct", offsetof(AVCodecContext, skip_idct)},
+      {cc, "skip_frame", offsetof(AVCodecContext, skip_frame)},
+      {fc, "packetsize", offsetof(AVFormatContext, packet_size)},
+      {fc, "max_delay", offsetof(AVFormatContext, max_delay)},
+      {fc, "fflags", offsetof(AVFormatContext, flags)},
+      {sc, "disposition", offsetof(AVStream, disposition)},
+      {sc, "discard", offsetof(AVStream, discard)},
+  };
+  for (const Field &f : fields) {
+    const AVOption *o = av_opt_find(const_cast<const AVClass **>(&f.cls),
+                                    f.option, nullptr, 0,
+                                    AV_OPT_SEARCH_FAKE_OBJ);
+    if (!o || o->offset != static_cast<int>(f.offset)) {
+      set_err(err, errlen,
+              std::string("libav_abi.h: option ") + f.option + " at " +
+                  (o ? std::to_string(o->offset) : "none") + ", declared at " +
+                  std::to_string(f.offset));
+      return -1;
+    }
+  }
+  AVFrame *frame = av_frame_alloc();
+  AVPacket *pkt = av_packet_alloc();
+  const bool defaults_ok =
+      frame && pkt && frame->format == -1 &&
+      frame->extended_data == frame->data &&
+      frame->pts == AV_NOPTS_VALUE && frame->pkt_dts == AV_NOPTS_VALUE &&
+      frame->best_effort_timestamp == AV_NOPTS_VALUE &&
+      frame->time_base.den == 1 && frame->ch_layout.nb_channels == 0 &&
+      pkt->pts == AV_NOPTS_VALUE && pkt->dts == AV_NOPTS_VALUE &&
+      pkt->pos == -1 && pkt->time_base.den == 1;
+  av_frame_free(&frame);
+  av_packet_free(&pkt);
+  if (!defaults_ok) {
+    set_err(err, errlen,
+            "libav_abi.h: AVFrame/AVPacket defaults not where declared");
+    return -1;
+  }
+#else
+  (void)err;
+  (void)errlen;
+#endif
+  return 0;
+}
 
 // Runtime libav versions (packed FFmpeg style: (major<<16)|(minor<<8)|micro).
 // The doctor tool uses these to report whether the linked FFmpeg can export
@@ -1367,7 +1464,9 @@ MVT_EXPORT void mvt_libav_versions(unsigned *fmt, unsigned *cod,
 // v11: mvt_scan_grids_multi grows a per-frame has_mv out-param (nullable)
 // so vec_needed<=0 sweeps can apply the reference's `!sd -> false` rule,
 // which a zero vote grid cannot represent.
-MVT_EXPORT int mvt_abi_version() { return 11; }
+// v12: adds mvt_libav_check (the loader refuses a libav whose layout
+// differs from the one compiled against).
+MVT_EXPORT int mvt_abi_version() { return 12; }
 
 // Frame-skip modulo phase of the handle's decode position (testing aid).
 MVT_EXPORT int mvt_skip_phase(MvtHandle *h) { return h ? h->skip_phase : -1; }

@@ -53,8 +53,7 @@ def run_reference(binary: str, shim: str, input_arg: str, output_arg: str,
 def run_ours(input_arg: str, output_arg: str, dump: str,
              env_knobs: dict | None = None, dump_dir: str | None = None,
              timeout: int = 3600):
-    # default covers a worst-case remote-compile day (cold compiles
-    # observed north of 500s each) plus the 1-CPU decode of a long clip
+    # default covers cold compiles plus the 1-CPU decode of a long clip
     """Run our CLI with the list-capturing ffmpeg stand-in.
 
     Returns (wall_seconds, concat_text_or_None, stdout_text).

@@ -52,16 +52,16 @@ class TestSingleFile:
             assert 5.0 < r.duration < 10.0
 
     def test_backend_parity(self, motion_clip, tmp_path):
-        """xla, pallas(interpret on CPU is implicit in tests) and oracle
-        backends produce identical savings."""
+        """The device (auto) and oracle backends produce identical
+        savings."""
         res = {}
-        for backend in ("xla", "oracle"):
+        for backend in ("auto", "oracle"):
             out = str(tmp_path / f"out_{backend}.mp4")
             p = ProcessingPipeline(motion_clip, out,
                                    cfg=Config(scan_backend=backend))
             assert p.run() == 0
             res[backend] = (p.time_removed, p.saved_pct)
-        assert res["xla"] == res["oracle"]
+        assert res["auto"] == res["oracle"]
 
     def test_static_clip_no_output(self, static_clip, tmp_path):
         out = str(tmp_path / "none.mp4")

@@ -248,7 +248,7 @@ def _fuzz_one(reference_bin, clips, tmp_path, knobs, our_extra):
         str(tmp_path / "ref_out.mp4"),
         str(tmp_path / "ref_concat.txt"), knobs)
     our_knobs = dict(knobs)
-    our_knobs["MVT_JAX_PLATFORM"] = "cpu"  # device path, CPU-backed
+    our_knobs["JAX_PLATFORMS"] = "cpu"  # device path, CPU-backed
     our_knobs["MVT_LOG"] = "0"
     our_knobs.update(our_extra)
     _, ours, _ = harness.run_ours(
@@ -263,8 +263,8 @@ def _fuzz_one(reference_bin, clips, tmp_path, knobs, our_extra):
 class TestRandomizedParity:
     """Differential fuzz: random knob combinations through the compiled
     reference and OUR DEVICE PATH (default bits scan -> word-domain
-    cluster op on the CPU backend via MVT_JAX_PLATFORM — the same jit
-    program TPUs run), asserting byte-identical concat lists.  The fixed
+    cluster op on the CPU backend via JAX_PLATFORMS — the same jit
+    program the card runs), asserting byte-identical concat lists.  The fixed
     CONFIGS above use the oracle backend; this class pins the device
     kernels themselves to the reference across the knob space.
     MVT_FUZZ_N widens the sweep (see CLAUDE.md)."""

@@ -53,152 +53,77 @@ class TestSADKernels:
         np.testing.assert_array_equal(
             np.asarray(motion), expect >= max(1, CFG.clusters_needed))
 
-    def test_pallas_matches_xla(self, rng):
-        luma = self.random_luma(rng)
-        op_x = sad_ops.make_sad_op_xla(
-            GEOM, sad_threshold=CFG.sad_threshold,
+    @pytest.mark.parametrize("dims", [(1920, 1080), (3840, 2160),
+                                      (330, 250)])
+    def test_xla_matches_oracle_at_widths(self, rng, dims):
+        """1080p- and 4K-shaped small batches, and a size whose edge
+        blocks are cut by the frame border."""
+        w, h = dims
+        geom = GridGeometry.build(w, h, CFG)
+        luma = np.zeros((4, h, w), np.uint8)
+        luma[:] = rng.integers(0, 200, size=(h, w), dtype=np.uint8)
+        for i in (1, 3):
+            luma[i, h // 4:h // 2, (w // 8) * i:(w // 8) * i + w // 4] = 255
+        padded = sad_ops.pad_luma(luma, geom, CFG.block_size)
+        op = sad_ops.make_sad_op_xla(
+            geom, sad_threshold=CFG.sad_threshold,
             block_size=CFG.block_size, clusters_needed=CFG.clusters_needed)
-        op_p = sad_ops.make_sad_op_pallas(
-            GEOM, sad_threshold=CFG.sad_threshold,
-            block_size=CFG.block_size, clusters_needed=CFG.clusters_needed,
-            height=240, width=320, interpret=True)
-        cx, _ = op_x(luma)
-        cp, _ = op_p(luma)
-        np.testing.assert_array_equal(np.asarray(cx), np.asarray(cp))
-
-    def test_sliced_kernel_matches_oracle(self, rng):
-        """make_sad_kernel_sliced (the lane-axis sub-frame-blocked 4K
-        variant): per-slice _sad_grid columns assemble to the full-frame
-        grid and the once-per-frame cluster decision is oracle-exact.
-        Uses a 4K-width geometry (padded_gw=256) — the 128*S lane
-        alignment the kernel requires."""
-        import jax
-        import jax.numpy as jnp
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        S = 2
-        geom = GridGeometry.build(3840, 96, CFG)   # gw=240->256, gh=6->8
-        bs = CFG.block_size
-        gh_p, gw_p = geom.padded_gh, geom.padded_gw
-        h_p, w_p = gh_p * bs, gw_p * bs
-        w_s = w_p // S
-        n = 7
-        luma = np.zeros((n, h_p, w_p), np.uint8)
-        luma[:] = rng.integers(0, 200, size=(h_p, w_p), dtype=np.uint8)
-        for i in range(1, n, 2):                   # motion crossing the
-            luma[i, 20:80, w_s - 200:w_s + 200] = 255  # slice boundary
-        bound = sad_ops.sad_threshold_sum(CFG.sad_threshold, bs)
-        nb = n - 1
-        kernel = sad_ops.make_sad_kernel_sliced(geom, bs, bound, S)
-        counts = pl.pallas_call(
-            kernel,
-            grid=(nb, S),
-            in_specs=[pl.BlockSpec((1, h_p, w_p), lambda j, s: (0, 0, 0),
-                                   memory_space=pltpu.VMEM),
-                      pl.BlockSpec((1, h_p, w_s), lambda j, s: (j, 0, s),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((1, 1, 1), lambda j, s: (j, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((nb, 1, 1), jnp.int32),
-            scratch_shapes=[pltpu.VMEM((h_p, w_p), jnp.uint8),
-                            pltpu.VMEM((gh_p, gw_p), jnp.int32)],
-            interpret=True,
-        )(luma[:1], luma[1:])
+        counts, motion = op(padded)
         expect = sad_oracle_counts(luma, geom,
                                    sad_threshold=CFG.sad_threshold,
-                                   block_size=bs)
-        np.testing.assert_array_equal(np.asarray(counts)[:, 0, 0], expect)
+                                   block_size=CFG.block_size)
+        assert expect[0] > 0 and expect[1] > 0
+        np.testing.assert_array_equal(np.asarray(counts), expect)
+        np.testing.assert_array_equal(
+            np.asarray(motion), expect >= max(1, CFG.clusters_needed))
 
-    def test_sliced_product_op_auto_selects_and_matches_xla(self, rng):
-        """make_sad_op_pallas flips to the sliced kernel when F=1 and
-        the geometry is 256-lane-aligned (the 4K shape); decisions must
-        match the XLA op bit for bit."""
-        geom = GridGeometry.build(3840, 96, CFG)
-        kw = dict(sad_threshold=CFG.sad_threshold,
-                  block_size=CFG.block_size,
-                  clusters_needed=CFG.clusters_needed)
-        op_p = sad_ops.make_sad_op_pallas(
-            geom, height=96, width=3840, interpret=True,
-            frames_per_step=1, **kw)   # F=1 forces the S=2 auto-select
-        assert op_p.slices_per_frame == 2
-        assert op_p.frames_per_step == 1
-        op_x = sad_ops.make_sad_op_xla(geom, **kw)
-        h_p = geom.padded_gh * CFG.block_size
-        w_p = geom.padded_gw * CFG.block_size
-        luma = rng.integers(0, 256, size=(9, h_p, w_p), dtype=np.uint8)
-        cx, mx = op_x(luma)
-        cp, mp = op_p(luma)
-        np.testing.assert_array_equal(np.asarray(cx), np.asarray(cp))
-        np.testing.assert_array_equal(np.asarray(mx), np.asarray(mp))
-        # 1080p (gw_p=128) and multi-frame steps keep the unsliced kernel
-        op_1080 = sad_ops.make_sad_op_pallas(
-            GEOM, height=240, width=320, interpret=True,
-            frames_per_step=1, **kw)
-        assert op_1080.slices_per_frame == 1
+    @pytest.mark.parametrize("delta,active", [(0, True), (-1, False)])
+    def test_near_threshold_sums_exact(self, delta, active):
+        """Every 16x16 block's SAD sits exactly at the activation bound
+        (delta 0: active) or one below it (delta -1: inactive), built
+        from per-column sums of 257 — the op's integer sums must not
+        round."""
+        cfg = Config(sad_threshold=16.0625)   # bound = 4112 = 16 * 257
+        bound = sad_ops.sad_threshold_sum(cfg.sad_threshold, cfg.block_size)
+        assert bound == 4112
+        geom = GridGeometry.build(640, 480, cfg)
+        luma = np.zeros((3, 480, 640), np.uint8)
+        luma[1, 0::16, :] = 255
+        luma[1, 1::16, :] = 2
+        if delta:
+            luma[1, 1::16, 0::16] = 2 + delta   # one pixel per block
+        luma[2] = luma[1]                   # no change: never motion
+        expect = sad_oracle_counts(luma, geom,
+                                   sad_threshold=cfg.sad_threshold,
+                                   block_size=cfg.block_size)
+        assert (expect[0] > 0) == active and expect[1] == 0
+        op = sad_ops.make_sad_op_xla(
+            geom, sad_threshold=cfg.sad_threshold,
+            block_size=cfg.block_size, clusters_needed=cfg.clusters_needed)
+        counts, _ = op(sad_ops.pad_luma(luma, geom, cfg.block_size))
+        np.testing.assert_array_equal(np.asarray(counts), expect)
 
-    def test_sliced_kernel_rejects_unaligned_slicing(self):
-        """Lane-store offsets must be 128-aligned: the builder refuses
-        geometries/S where GW_p/S is not a multiple of 128 (Mosaic would
-        fail to lower — caught on hardware, round 4)."""
-        bound = sad_ops.sad_threshold_sum(CFG.sad_threshold,
-                                          CFG.block_size)
-        with pytest.raises(ValueError, match="128"):
-            sad_ops.make_sad_kernel_sliced(GEOM, CFG.block_size, bound, 2)
-
-    @pytest.mark.parametrize(
-        "col_mode", ["hilo", "highest", "dcfirst", "vpurow"])
-    def test_col_modes_match_oracle(self, rng, col_mode):
-        """Every exact column-reduction mode of the per-frame SAD math
-        (ops/sad.sad_step_counts — the body both the product kernel and
-        the sad_bench shootout dispatch) is oracle-exact.  CPU/interpret
-        compute true f32, so the bf16 *rounding* hazards these modes
-        exist to avoid are only provable on hardware
-        (test_tpu_smoke.py::test_sad_kernel_near_threshold_exact_on_device);
-        this pins the reshape/split/matmul plumbing itself."""
-        import jax.numpy as jnp
-
-        luma = self.random_luma(rng, n=4)
-        bound = sad_ops.sad_threshold_sum(CFG.sad_threshold, CFG.block_size)
-        expect = sad_oracle_counts(
-            luma, GEOM, sad_threshold=CFG.sad_threshold,
-            block_size=CFG.block_size)
-        x = luma.astype(np.int32)
-        for i, e in enumerate(expect):
-            diff = jnp.abs(jnp.asarray(x[i + 1] - x[i]))
-            got = int(sad_ops.sad_step_counts(
-                diff, GEOM, CFG.block_size, bound, col_mode=col_mode))
-            assert got == e, (col_mode, i, got, e)
-
-    @pytest.mark.parametrize("fps_n", [1, 2, 3, 4])
-    def test_pallas_frames_per_step_parity(self, rng, fps_n):
-        """The multi-frame-step kernel is exact at every F, including
-        step-boundary carries and the padded tail (b % F != 0)."""
-        luma = self.random_luma(rng, n=8)  # b=7: pads for F in {2,3,4}
-        op_x = sad_ops.make_sad_op_xla(
-            GEOM, sad_threshold=CFG.sad_threshold,
-            block_size=CFG.block_size, clusters_needed=CFG.clusters_needed)
-        op_p = sad_ops.make_sad_op_pallas(
-            GEOM, sad_threshold=CFG.sad_threshold,
-            block_size=CFG.block_size, clusters_needed=CFG.clusters_needed,
-            height=240, width=320, interpret=True, frames_per_step=fps_n)
-        assert op_p.frames_per_step == fps_n
-        cx, mx = op_x(luma)
-        cp, mp = op_p(luma)
-        np.testing.assert_array_equal(np.asarray(cx), np.asarray(cp))
-        np.testing.assert_array_equal(np.asarray(mx), np.asarray(mp))
-
-    def test_pallas_vmem_autoscale_4k(self):
-        """4K frames (~8.9MB padded) halve frames_per_step to keep the
-        double-buffered frames block within the VMEM budget."""
-        geom4k = GridGeometry.build(3840, 2160, CFG)
-        op = sad_ops.make_sad_op_pallas(
-            geom4k, sad_threshold=CFG.sad_threshold,
-            block_size=CFG.block_size, clusters_needed=CFG.clusters_needed,
-            height=2160, width=3840, interpret=True)
-        assert op.frames_per_step == sad_ops.sad_frames_per_step(
-            geom4k, CFG.block_size)
-        assert op.frames_per_step < 4
+    def test_oracle_matches_blockwise_loop(self, rng):
+        """The vectorised SAD oracle equals a block-by-block loop over the
+        unpadded frame, including blocks cut by the right/bottom edge."""
+        w, h = 330, 250
+        geom = GridGeometry.build(w, h, CFG)
+        luma = rng.integers(0, 256, size=(3, h, w), dtype=np.uint8)
+        bs = CFG.block_size
+        bound = sad_ops.sad_threshold_sum(CFG.sad_threshold, bs)
+        x = luma.astype(np.int64)
+        diff = np.abs(x[1:] - x[:-1])
+        active = np.zeros((2, geom.gh, geom.gw), np.uint8)
+        for by in range(geom.gh):
+            for bx in range(geom.gw):
+                blk = diff[:, by * bs:(by + 1) * bs, bx * bs:(bx + 1) * bs]
+                active[:, by, bx] = blk.sum(axis=(1, 2)) >= bound
+        from mvtrim_tpu.core.oracle import count_clusters_batch
+        expect = count_clusters_batch(active, vectors_needed=1,
+                                      y_min=geom.y_min, y_max=geom.y_max)
+        np.testing.assert_array_equal(
+            sad_oracle_counts(luma, geom, sad_threshold=CFG.sad_threshold,
+                              block_size=bs), expect)
 
     def test_static_frames_inactive(self):
         h = GEOM.padded_gh * CFG.block_size
@@ -242,8 +167,22 @@ class TestSADDetector:
             np.testing.assert_array_equal(got, full,
                                           err_msg=f"split at {k}")
 
+    @pytest.mark.parametrize("device_batch", [64, 512])
+    def test_device_and_oracle_backends_agree(self, rng, device_batch):
+        """The device op and the NumPy oracle path decide identically,
+        across dispatch windows of 8 and 64 frames (a 20-frame chunk
+        fills one, two or three windows)."""
+        luma = self._luma_seq(rng, n=20)
+        got = {}
+        for backend in ("auto", "oracle"):
+            det = SADDetector(320, 240, Config(scan_backend=backend,
+                                               device_batch=device_batch))
+            got[backend] = det.scan_luma(luma)
+        assert got["auto"][1:8].all()
+        np.testing.assert_array_equal(got["auto"], got["oracle"])
+
     def test_device_pin_same_decisions(self, rng):
-        """Pinning the detector to an explicit device (multi-chip batch
+        """Pinning the detector to an explicit device (multi-card batch
         round-robin) changes placement only, never decisions."""
         import jax
 

@@ -116,7 +116,9 @@ class TestNativeScanWords:
 
 
 class TestDetectorBits:
-    @pytest.mark.parametrize("backend", ["xla", "oracle"])
+    # ids name the path taken: "auto" resolves to the XLA build
+    @pytest.mark.parametrize("backend", ["auto", "oracle"],
+                             ids=["xla", "oracle"])
     def test_bits_decision_equals_grids(self, backend):
         rng = np.random.default_rng(7)
         cfg = Config(scan_backend=backend, device_batch=32)
@@ -129,40 +131,39 @@ class TestDetectorBits:
                                       det.scan_votes(grids))
 
     @pytest.mark.parametrize("db", [32, 1048, 1152])
-    def test_bits_transposed_pallas_path(self, monkeypatch, db):
-        """The TPU bits path (transposed pallas kernel + transposed host
-        batch layout) decides identically — driven on CPU by forcing the
-        'pallas' backend through an interpret-mode build.  db=1048/1152:
-        batches with no 1024 divisor must still get a Mosaic-legal lane
-        block (multiple of 128, or the whole batch)."""
-        from mvtrim_tpu.models import mv_detector as mvd
-
+    def test_bits_across_device_batches(self, db):
+        """The word-layout dispatch pads, splits and resolves batches of
+        any size identically: 70 frames land in one partial batch or
+        three, never rounded to a tile multiple."""
         rng = np.random.default_rng(11)
-        cfg = Config(device_batch=db)
-        det = MVClusterDetector(360, 240, cfg)
-        monkeypatch.setattr(det, "_bits_backend", lambda: "pallas")
-
-        def fake_cached(geom, clusters_needed, backend, block_b):
-            from mvtrim_tpu.ops.cluster import (
-                make_cluster_words_op_pallas_T, make_cluster_words_op_xla)
-            if backend == "pallas":
-                assert det.device_batch % block_b == 0
-                assert (block_b % 128 == 0
-                        or block_b == det.device_batch), block_b
-                return make_cluster_words_op_pallas_T(
-                    geom, clusters_needed, block_b=block_b, interpret=True)
-            return make_cluster_words_op_xla(geom, clusters_needed)
-
-        monkeypatch.setattr(mvd.cluster_ops, "_cached_bits_op", fake_cached)
+        det = MVClusterDetector(360, 240, Config(device_batch=db))
+        assert det.device_batch == db
         grids = rng.integers(0, 5, size=(70, det.geom.gh, det.geom.gw),
                              dtype=np.uint8)
-        packed = np.packbits(grids >= cfg.vectors_needed, axis=2,
+        packed = np.packbits(grids >= det.cfg.vectors_needed, axis=2,
                              bitorder="little")
-        got = det.scan_bits(packed)
-        assert det._bits_transposed
-        ref = MVClusterDetector(360, 240, Config(scan_backend="xla",
-                                                 device_batch=db))
-        np.testing.assert_array_equal(got, ref.scan_bits(packed))
+        ref = MVClusterDetector(360, 240, Config(scan_backend="oracle"))
+        np.testing.assert_array_equal(det.scan_bits(packed),
+                                      ref.scan_bits(packed))
+
+    @pytest.mark.parametrize("m", [256, 8192])
+    def test_raw_mvs_device_equals_oracle(self, m):
+        """scan_raw_mvs decides like the oracle backend, which runs the
+        NumPy restatement with no device, across a partial and a full
+        dispatch bucket."""
+        rng = np.random.default_rng(5)
+        n = 300
+        counts = rng.integers(0, m + 1, n).astype(np.int32)
+        counts[::7] = 0
+        mvs = np.zeros((n, m, 4), np.int16)
+        dst = rng.integers(-16, 376, (n, m, 2))
+        mvs[..., :2] = dst
+        mvs[..., 2:] = dst - rng.integers(-9, 10, (n, m, 2))
+        got = {b: MVClusterDetector(360, 240, Config(
+            scan_backend=b, vectors_needed=1)).scan_raw_mvs(mvs, counts)
+               for b in ("auto", "oracle")}
+        assert got["oracle"].any() and not got["oracle"][::7].any()
+        np.testing.assert_array_equal(got["auto"], got["oracle"])
 
     def test_raw_mvs_overflow_raises(self):
         cfg = Config()
